@@ -1,0 +1,113 @@
+"""The paper's 40-MIOPS drive for the port, and a profile of its rounds.
+
+``local_1drive`` is ``benchmarks/emulator_speed.py``'s configuration of
+that name: ``benchmarks/common.py::swarmio_cfg()`` (32 SQs x 1024, fetch
+width 256, 16 service units, aggregated timing, coalesced DSA fetch,
+DSA datapath) on ``FUTURE_40M`` (40e6 IOPS, 512 instances, 16384 blocks).
+
+    python -m repro_torch.bench [--rounds 24] [--trace PATH]
+
+runs it read-only with the kernel flags on, once to warm up and once
+under ``torch.profiler``, and prints one JSON line: wall and device
+kernel time per round, the device's idle share, device events (kernels
+and copies) and memcpy calls per round, the host-device synchronisations
+in the window, and the ops with the most device time. It needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from repro_torch.core.types import EngineConfig, SSDConfig
+
+FUTURE_40M = SSDConfig(name="future-40m", t_max_iops=40e6, l_min_us=30.0,
+                       n_instances=512, num_blocks=1 << 14)
+
+
+def local_1drive(**kw):
+    """(EngineConfig, SSDConfig) of ``local_1drive``; ``kw`` overrides
+    EngineConfig fields."""
+    base = dict(
+        num_sqs=32, sq_depth=1024, fetch_width=256, num_units=16,
+        workers_per_unit=1, frontend="distributed", mode="aggregated",
+        coalesced=True, batched_datapath=True, emulate_data=False,
+        num_bufs=1 << 10,
+    )
+    base.update(kw)
+    return EngineConfig(**base), FUTURE_40M
+
+
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize")
+
+
+def profile_rounds(rounds: int, trace: "str | None") -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine
+    from repro_torch.core.types import PlatformModel, WorkloadConfig
+
+    dev = torch.device("cuda", 0)
+    cfg, ssd = local_1drive(emulate_data=True, use_pallas=True,
+                            use_pallas_segscan=True, use_pallas_reap=True)
+    wl = WorkloadConfig(io_depth=256)
+    state = engine.init_state(cfg, ssd, wl, device=dev)
+    runner = engine.make_runner(cfg, ssd, wl, PlatformModel(), rounds, dev)
+    runner(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, syncs, memcpys, by_name = [], 0, 0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dur = e.time_range.end - e.time_range.start
+            kernels.append(dur)
+            by_name[e.name] = by_name.get(e.name, 0.0) + dur
+        elif e.name.startswith(_SYNC_CALLS):
+            syncs += 1
+        elif e.name.startswith("cudaMemcpy"):
+            memcpys += 1
+    if trace:
+        prof.export_chrome_trace(trace)
+    busy_us = float(sum(kernels))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    return {
+        "card": smi, "rounds": rounds,
+        "wall_ms_per_round": wall * 1e3 / rounds,
+        "device_ms_per_round": busy_us / 1e3 / rounds,
+        "device_idle_share": 1.0 - busy_us / (wall * 1e6),
+        "device_events_per_round": len(kernels) / rounds,
+        # The window ends with one torch.cuda.synchronize() of its own.
+        "host_syncs_in_window": syncs,
+        "memcpy_calls_per_round": memcpys / rounds,
+        "top_device_ms_per_round": {
+            k[:80]: v / 1e3 / rounds for k, v in top
+        },
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=24)
+    ap.add_argument("--trace", default=None,
+                    help="write the chrome trace here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("repro_torch.bench needs a CUDA device")
+    print(json.dumps(profile_rounds(args.rounds, args.trace)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,98 @@
+"""Carry engine state between the reference and the port.
+
+A state is exchanged as a flat dict of numpy arrays keyed by the
+reference's pytree paths, e.g. ``"device.tstate.busy_until"`` (the field
+names of the two packages' dataclasses are the same, so the paths are
+too). Dtypes pass through unchanged: float32, int32 and bool.
+"""
+from __future__ import annotations
+
+import dataclasses
+import typing
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import EngineState
+
+
+def _collect(obj, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        path = prefix + f.name
+        if v is None:
+            continue
+        if dataclasses.is_dataclass(v):
+            _collect(v, path + ".", out)
+        else:
+            out[path] = v.detach().cpu().numpy()
+
+
+def _build(cls, leaves: Dict[str, np.ndarray], prefix: str, device):
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        t = hints[f.name]
+        path = prefix + f.name
+        if dataclasses.is_dataclass(t):
+            kw[f.name] = _build(t, leaves, path + ".", device)
+        elif t is type(None):
+            kw[f.name] = None
+        else:
+            arr = np.array(leaves[path], copy=True, order="C")
+            kw[f.name] = torch.from_numpy(arr).to(device)
+    return cls(**kw)
+
+
+def engine_state_to_numpy(state: EngineState) -> Dict[str, np.ndarray]:
+    """Every leaf of ``state`` as a numpy array, keyed by its path."""
+    out: Dict[str, np.ndarray] = {}
+    _collect(state, "", out)
+    return out
+
+
+def ulp_distance(a: np.ndarray, b: np.ndarray) -> int:
+    """Largest distance in float32 units in the last place between two
+    arrays (0 for bit-identical ones; +0 and -0 are 0 apart)."""
+    def key(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int(np.abs(key(a) - key(b)).max()) if np.size(a) else 0
+
+
+def leaf_differences(
+    ref: Dict[str, np.ndarray],
+    port: Dict[str, np.ndarray],
+    ulp_bounds: "Dict[str, int] | None" = None,
+) -> list:
+    """Describe every leaf where ``port`` breaks its contract with ``ref``:
+    a missing leaf, another dtype or shape, an integer or bool leaf that is
+    not equal, or a float leaf more than ``ulp_bounds.get(path, 0)`` ULP
+    away. An empty list means the two states agree."""
+    bounds = ulp_bounds or {}
+    out = []
+    for path in sorted(set(ref) | set(port)):
+        if path not in ref or path not in port:
+            out.append(f"{path}: only in one state")
+            continue
+        a, b = ref[path], port[path]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            out.append(f"{path}: {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+        elif a.dtype.kind == "f":
+            u = ulp_distance(a, b)
+            if u > bounds.get(path, 0):
+                out.append(f"{path}: {u} ULP (bound {bounds.get(path, 0)})")
+        elif not np.array_equal(a, b):
+            out.append(f"{path}: {int(np.sum(a != b))} entries differ")
+    return out
+
+
+def engine_state_from_numpy(
+    leaves: Dict[str, np.ndarray], device: "torch.device | str"
+) -> EngineState:
+    """The port's ``EngineState`` on ``device`` from path-keyed leaves
+    (the inverse of ``engine_state_to_numpy``). A missing leaf raises
+    ``KeyError`` naming its path."""
+    return _build(EngineState, leaves, "", torch.device(device))

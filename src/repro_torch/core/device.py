@@ -1,0 +1,268 @@
+"""The layered device pipeline (port of ``repro/core/device.py``).
+
+``DevicePipeline.process`` composes, for one fetched ``RequestBatch``:
+
+    stage 2a  the global timing lock over the admission ``Epoch``
+    stage 2b  target completion times (``timing.update``)
+    stage 3   the backend data path (DSA offload or baseline workers)
+    stage 4   the flash backend (writes, GC, mapping misses)
+    stage 5   posting to the CQ paired with each SQ and reaping (``qp``)
+
+This slice ports the local-drive branch in program lock order. The
+branches it does not port are rejected when the pipeline is built — never
+at run time — each with the ROADMAP item that will bring it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import datapath, qp, segops, timing
+from repro_torch.core.epoch import Epoch
+from repro_torch.core.fabric import FabricState
+from repro_torch.core.flash import FlashState, flash_stage
+from repro_torch.core.qp import CQRings
+from repro_torch.core.types import (
+    F32,
+    EngineConfig,
+    PlatformModel,
+    RequestBatch,
+    SSDConfig,
+    TimingState,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceState:
+    """All virtual-time emulator-side state for one emulated device."""
+
+    tstate: TimingState       # shared timing model (busy_until + rr cursor)
+    disp_time: torch.Tensor   # (U,) dispatcher busy-until cursors
+    work_time: torch.Tensor   # (U, W) baseline worker lanes busy-until
+    dsa_time: torch.Tensor    # (U,) DSA engine busy-until cursors
+    lock_time: torch.Tensor   # ()  global timing-lock busy-until
+    map_time: torch.Tensor    # ()  global map/unmap-lock busy-until
+    flash: FlashState         # stage-4 flash-array state
+    fabric: FabricState       # NIC/link cursors (remote drives only)
+
+    @staticmethod
+    def init(ssd: SSDConfig, num_units: int, workers_per_unit: int,
+             num_tenants: int, device) -> "DeviceState":
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=F32, device=device)
+
+        return DeviceState(
+            tstate=TimingState.init(ssd.n_instances, device),
+            disp_time=zeros(num_units),
+            work_time=zeros(num_units, workers_per_unit),
+            dsa_time=zeros(num_units),
+            lock_time=zeros(),
+            map_time=zeros(),
+            flash=FlashState.init(ssd, device),
+            fabric=FabricState.init(num_tenants, device),
+        )
+
+    @property
+    def num_units(self) -> int:
+        return self.disp_time.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineResult:
+    """Per-request virtual-time outcome of one pipeline pass (all (N,))."""
+
+    arrival: torch.Tensor     # post-lock dispatch time (timing-model input)
+    target: torch.Tensor      # timing-model completion (device fidelity)
+    ready: torch.Tensor       # data-path completion (copy landed)
+    flash_done: torch.Tensor  # flash-backend completion
+    done: torch.Tensor        # max(target, ready, flash_done), 0 if invalid
+    reaped: torch.Tensor      # when the consumer observed the completion
+
+
+def acquire_lock(
+    lock_time: torch.Tensor,
+    epoch: Epoch,
+    num_units: int,
+    cfg: EngineConfig,
+    plat: PlatformModel,
+) -> Tuple[torch.Tensor, torch.Tensor, None]:
+    """Serialize service units on the global timing-model lock, in unit
+    index (program) order: ``done_u = max(t, ready_u) + cost_u``, folded
+    unit by unit exactly as the reference's sequential scan. The cost is
+    per batch (aggregated mode). Returns ``(lock_time', lock_done (U,),
+    None)`` — no acquisition permutation in program order."""
+    n_valid_u = epoch.unit_counts(num_units)
+    batch_ready = epoch.unit_ready(num_units)
+    cost = torch.where(
+        n_valid_u > 0, float(np.float32(plat.lock_per_batch_us)), 0.0
+    )
+    t = lock_time
+    grants = []
+    for u in range(num_units):
+        t = torch.maximum(t, batch_ready[u]) + cost[u]
+        grants.append(t)
+    return t, torch.stack(grants), None
+
+
+_UNPORTED = (
+    (lambda c: c.mode == "per_request", "mode='per_request'", "A3"),
+    (lambda c: c.frontend == "centralized", "frontend='centralized'", "A5"),
+    (lambda c: c.timing_scope == "local", "timing_scope='local'", "A3"),
+    (lambda c: c.lock_order == "ready_time", "lock_order='ready_time'", "A4"),
+    (lambda c: c.fabric.remote, "fabric.remote", "A12"),
+    (lambda c: c.cache.enabled, "cache.enabled", "A13"),
+    (lambda c: not c.qp.neutral, "a non-neutral QPConfig", "A8"),
+    (lambda c: c.sanitize, "sanitize=True", "A9"),
+)
+
+
+def check_ported(cfg: EngineConfig) -> None:
+    """Raise ``NotImplementedError`` for a branch this port does not have."""
+    for test, what, item in _UNPORTED:
+        if test(cfg):
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP {item})"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePipeline:
+    """Static composition of the stages for one device model."""
+
+    cfg: EngineConfig
+    ssd: SSDConfig
+    plat: PlatformModel
+
+    def __post_init__(self) -> None:
+        check_ported(self.cfg)
+
+    @property
+    def num_units(self) -> int:
+        return self.cfg.num_units if self.cfg.frontend == "distributed" else 1
+
+    def init_state(self, device) -> DeviceState:
+        return DeviceState.init(
+            self.ssd, self.num_units, self.cfg.workers_per_unit,
+            self.cfg.fabric.num_tenants, device,
+        )
+
+    def init_cq(self, device) -> CQRings:
+        """Fresh CQ rings shaped to mirror the configured SQ rings."""
+        return CQRings.empty(self.cfg.num_sqs, self.cfg.sq_depth, device)
+
+    def process(
+        self,
+        state: DeviceState,
+        batch: RequestBatch,
+        fetch_done: torch.Tensor,  # (N,) per-row fetch completion times
+        unit: torch.Tensor,        # (N,) i32 non-decreasing service-unit ids
+        cq: "CQRings | None" = None,
+        ring_layout: bool = False,
+    ) -> Tuple[DeviceState, "CQRings | None", PipelineResult]:
+        """Timing model under the global lock, then the data path, the
+        flash backend and the CQ completion path. ``ring_layout=True``
+        promises the SQ-major fixed-width layout of the ring gather (so
+        the compaction path may use block reductions); ``cq=None`` skips
+        stage 5."""
+        cfg, ssd, plat = self.cfg, self.ssd, self.plat
+        u = state.num_units
+        valid = batch.valid
+
+        compact = cfg.use_compaction
+        blocky = compact and ring_layout
+        pallas = cfg.resolve_pallas_segscan(ssd, plat)
+        unit_rank = (
+            segops.presorted_plan(unit).rank if cfg.use_sort_plan else None
+        )
+        if blocky:
+            cq_rank = segops.block_masked_rank(valid, cfg.fetch_width)
+            cq_counts = segops.block_counts(valid, cfg.fetch_width)
+        else:
+            cq_rank = (
+                segops.masked_presorted_rank(batch.sq_id, valid)
+                if cfg.use_sort_plan else None
+            )
+            cq_counts = None
+
+        # -- stage 2a: global timing-model lock over the admission epoch.
+        epoch = Epoch.from_batch(
+            batch, fetch_done, unit, "ring" if ring_layout else "direct"
+        )
+        n_valid_u = epoch.unit_counts(u)
+        lock_time, lock_done, _ = acquire_lock(
+            state.lock_time, epoch, u, cfg, plat
+        )
+        disp_time = torch.maximum(state.disp_time, lock_done)
+        epoch = epoch.admit(lock_done)
+        arrival = epoch.arrival
+
+        # -- stage 2b: target completion times.
+        tbatch = dataclasses.replace(batch, arrival=arrival)
+        tstate, target = timing.update(
+            state.tstate, tbatch, ssd, cfg.mode, use_compaction=compact,
+        )
+
+        # -- stage 3: backend data transfer.
+        if cfg.batched_datapath:
+            # The DSA engine also carried the fetch transfer: bump its
+            # cursors by the fetched bytes (integer-valued f32 sums are
+            # exact in any order).
+            sqe = float(np.float32(plat.sqe_bytes))
+            if blocky:
+                fetch_bytes_u = n_valid_u.to(F32) * sqe
+            else:
+                fetch_bytes_u = segops.segment_sum(
+                    torch.where(valid, sqe, 0.0), unit, u
+                )
+            dsa_time0 = state.dsa_time + segops.true_div(
+                fetch_bytes_u, plat.dsa_bytes_per_us
+            )
+            dsa_time, ready = datapath.dsa_worker_times(
+                dsa_time0, arrival, batch, cfg, plat, ssd, unit=unit
+            )
+            work_time, map_time = state.work_time, state.map_time
+        else:
+            work_time, map_time, ready = datapath.baseline_worker_times(
+                state.work_time, state.map_time, arrival, batch, cfg, plat,
+                ssd, unit=unit, unit_rank=unit_rank,
+                use_counting_sort=compact,
+            )
+            dsa_time = state.dsa_time
+
+        # -- stage 4: flash-level backend (writes, GC, mapping misses).
+        if ssd.flash_backend:
+            fstate, flash_done = flash_stage(
+                state.flash, batch, arrival, target, ssd, use_pallas=pallas,
+                use_counting_sort=compact,
+                use_pallas_flash=cfg.use_pallas_flash,
+            )
+        else:
+            fstate, flash_done = state.flash, torch.where(valid, arrival, 0.0)
+
+        done = torch.where(
+            valid, torch.maximum(torch.maximum(target, ready), flash_done),
+            0.0,
+        )
+        new_state = DeviceState(
+            tstate=tstate, disp_time=disp_time, work_time=work_time,
+            dsa_time=dsa_time, lock_time=lock_time, map_time=map_time,
+            flash=fstate, fabric=state.fabric,
+        )
+
+        # -- stage 5: post to the CQ and reap (queue-pair layer).
+        if cq is None:
+            reaped = done
+        else:
+            cq, reaped = qp.post_and_reap(
+                cq, batch.sq_id, done, batch.req_id, valid, cfg.qp,
+                posted_rank=cq_rank, posted_counts=cq_counts,
+                fused_scatter=compact, use_pallas_reap=cfg.use_pallas_reap,
+            )
+        res = PipelineResult(
+            arrival=arrival, target=target, ready=ready,
+            flash_done=flash_done, done=done, reaped=reaped,
+        )
+        return new_state, cq, res

@@ -1,0 +1,399 @@
+"""Closed-loop emulation engine (port of ``repro/core/engine.py``).
+
+One round: dispatchers fetch newly visible SQ entries (frontend), the
+shared ``DevicePipeline`` prices them (lock, timing model, data path,
+flash backend, CQ post and reap), the metrics and the functional block
+copies are updated, and the workload resubmits each completed slot.
+
+The port runs eagerly: ``run`` is a Python loop over rounds and
+``make_runner`` returns that loop with the configs bound. No round reads
+a value back to the host, so the work stays queued on the card. Entry
+points run on ``cuda`` unless the caller names a device, and raise when
+no card is present and none was named.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import datapath, frontend, segops
+from repro_torch.core.device import DevicePipeline, DeviceState, check_ported
+from repro_torch.core.frontend import SQRings
+from repro_torch.core.qp import CQRings
+from repro_torch.core.segops import segment_sum
+from repro_torch.core.types import (
+    F32,
+    I32,
+    EngineConfig,
+    PlatformModel,
+    SSDConfig,
+    WorkloadConfig,
+    resolve_device,
+)
+from repro_torch.workloads import Workload, as_workload
+
+FAR = 3e38
+
+HIST_BUCKETS = 64
+HIST_LO_US = 1.0
+HIST_DECADES = 5.0
+
+
+# Lower edge of buckets 1..63 as float32 bit patterns: the smallest
+# latency that the reference's compiled float32 formula
+# ``clip(log10(max(lat, 1e-6)) * 64/5, 0, 63)`` puts in each bucket. Its
+# float32 ``log10`` rounds its own way within an ULP or two of each edge,
+# so the port compares against the edges it produces instead of taking a
+# logarithm: every device then buckets a latency exactly as the reference
+# does (tests/test_torch_engine.py checks every edge and its neighbours).
+_EDGE_BITS = (
+    0x3f993a15, 0x3fb76cf5, 0x3fdb9378, 0x40036cf4, 0x401d53df, 0x403c55a4,
+    0x406173d4, 0x4086f160, 0x40a189c0, 0x40c15ff5, 0x40e77c71, 0x410a8de6,
+    0x4125dc7b, 0x41468cce, 0x416dae66, 0x418e4328, 0x41aa4cd3, 0x41cbdd1c,
+    0x41f40acc, 0x421211d3, 0x422edb95, 0x425151d1, 0x427a92c4, 0x4295fa94,
+    0x42b3898f, 0x42d6ebe8, 0x4300a3c3, 0x4319fe1c, 0x433857a0, 0x435cac60,
+    0x43841519, 0x439e1d24, 0x43bd4691, 0x43e2943f, 0x44079e00, 0x44225868,
+    0x44425754, 0x4468a495, 0x448b3f28, 0x44a6b0aa, 0x44c78ad2, 0x44eede76,
+    0x450ef929, 0x452b26b0, 0x454ce1ee, 0x457542fb, 0x4592ccb0, 0x45afbb49,
+    0x45d25d9f, 0x45fbd350, 0x4616ba70, 0x46346f41, 0x4657fedf, 0x46814857,
+    0x469ac31b, 0x46b94372, 0x46ddc6b3, 0x4704be14, 0x471ee768, 0x473e38b8,
+    0x4763b620, 0x47884b85, 0x47a32816,
+)
+
+
+@functools.lru_cache(maxsize=8)
+def _edges_on(device: torch.device) -> torch.Tensor:
+    bits = torch.tensor(_EDGE_BITS, dtype=torch.int64).to(I32)
+    return bits.view(F32).to(device)
+
+
+def latency_bucket(lat_us: torch.Tensor) -> torch.Tensor:
+    """Histogram bucket index for an E2E latency (elementwise, i32)."""
+    edges = _edges_on(lat_us.device)
+    return torch.searchsorted(edges, lat_us, right=True).to(I32)
+
+
+def hist_percentile(hist: torch.Tensor, q: float) -> torch.Tensor:
+    """Approximate latency percentile: the geometric midpoint of the first
+    bucket where the CDF reaches ``q``."""
+    h = hist.reshape(-1, HIST_BUCKETS).sum(dim=0)
+    c = torch.cumsum(h, 0, dtype=F32)
+    idx = torch.argmax((c >= q * c[-1]).to(I32))
+    expo = (idx.to(F32) + 0.5) * (HIST_DECADES / HIST_BUCKETS)
+    return HIST_LO_US * torch.pow(10.0, expo)
+
+
+def _group_sum(vals: torch.Tensor, seg: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-group float sum with one fixed reduction order on every run
+    (a masked row sum — no atomics, whose order varies on the card)."""
+    groups = torch.arange(k, dtype=seg.dtype, device=seg.device)
+    return torch.where(seg[None, :] == groups[:, None], vals[None, :],
+                       0.0).sum(dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Metrics:
+    completed: torch.Tensor        # f32 count
+    fetched: torch.Tensor          # f32 count
+    sum_e2e: torch.Tensor          # f32 us (reap - submit)
+    sum_target: torch.Tensor       # f32 us (timing-model latency)
+    sum_proc: torch.Tensor         # f32 us (copy-ready - dispatch)
+    last_completion: torch.Tensor  # f32 us max completion time seen
+    first_submit: torch.Tensor     # f32 us min submit time seen
+    lat_hist: torch.Tensor         # (HIST_BUCKETS,) f32 E2E histogram
+    cache_hits: torch.Tensor       # f32 count of stage-0 cache hits
+    tenant_completed: torch.Tensor  # (T,) f32
+    tenant_sum_e2e: torch.Tensor    # (T,) f32 us
+    tenant_lat_hist: torch.Tensor   # (T, HIST_BUCKETS) f32
+
+    @staticmethod
+    def zero(num_tenants: int, device) -> "Metrics":
+        def z(*shape, v=0.0):
+            return torch.full(shape, v, dtype=F32, device=device)
+
+        return Metrics(
+            z(), z(), z(), z(), z(), z(), z(v=FAR),
+            z(HIST_BUCKETS), z(),
+            z(num_tenants), z(num_tenants), z(num_tenants, HIST_BUCKETS),
+        )
+
+    def iops(self) -> torch.Tensor:
+        """Virtual-time sustained IOPS (requests per emulated second)."""
+        span = torch.clamp(self.last_completion - self.first_submit, min=1e-6)
+        return self.completed / span * 1e6
+
+    def avg_e2e_us(self) -> torch.Tensor:
+        return self.sum_e2e / torch.clamp(self.completed, min=1.0)
+
+    def p50_us(self) -> torch.Tensor:
+        return hist_percentile(self.lat_hist, 0.50)
+
+    def p95_us(self) -> torch.Tensor:
+        return hist_percentile(self.lat_hist, 0.95)
+
+    def p99_us(self) -> torch.Tensor:
+        return hist_percentile(self.lat_hist, 0.99)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineState:
+    rings: SQRings              # submission half of the queue pairs
+    cq: CQRings                 # completion half (SQ q pairs with CQ q)
+    device: DeviceState         # the pipeline's virtual-time state
+    cache: None                 # stage-0 page cache (not ported: None)
+    clock: torch.Tensor         # () f32 virtual now
+    flash: torch.Tensor         # (num_blocks, block_words) emulated flash
+    bufs: torch.Tensor          # (num_bufs, block_words) I/O buffers
+    req_counter: torch.Tensor   # () i32 next request id
+    salt: torch.Tensor          # () i32 per-device workload salt
+    last_submit: torch.Tensor   # (Q,) f32 newest submit time per SQ
+    metrics: Metrics
+
+
+def init_state(
+    cfg: EngineConfig,
+    ssd: SSDConfig,
+    wl: "Workload | WorkloadConfig",
+    block_words: int = 16,
+    salt: int = 0,
+    device: "torch.device | str | None" = None,
+) -> EngineState:
+    """Rings pre-filled from the workload generator at t~0, on ``device``
+    (``cuda`` unless named)."""
+    device = resolve_device(device)
+    wl = as_workload(wl)
+    if wl.precondition_drive:
+        ssd = ssd.replace(preconditioned=True)
+    pipe = DevicePipeline(cfg, ssd, PlatformModel())
+    q, dep = cfg.num_sqs, cfg.sq_depth
+    rings = SQRings.empty(q, dep, device)
+
+    pre = wl.prefill(cfg, ssd, salt, device)
+    n_pre = pre.req_id.shape[0] * pre.req_id.shape[1]
+    buf_id = torch.remainder(pre.req_id, cfg.num_bufs).to(I32)
+    rings = frontend.submit_grouped(
+        rings, pre.submit, pre.opcode, pre.lba, pre.nblocks, buf_id,
+        pre.req_id, pre.valid, tenant=pre.tenant,
+        fused=cfg.use_compaction,
+    )
+
+    nb = ssd.num_blocks if cfg.emulate_data else 1
+    nbuf = cfg.num_bufs if cfg.emulate_data else 1
+    flash = (
+        torch.arange(nb, dtype=F32, device=device)[:, None]
+        + segops.true_div(
+            torch.arange(block_words, dtype=F32, device=device)[None, :],
+            block_words,
+        )
+    )
+    bufs = torch.zeros((nbuf, block_words), dtype=F32, device=device)
+    last_submit = torch.amax(torch.where(pre.valid, pre.submit, 0.0), dim=1)
+    return EngineState(
+        rings=rings,
+        cq=pipe.init_cq(device),
+        device=pipe.init_state(device),
+        cache=None,
+        clock=torch.zeros((), dtype=F32, device=device),
+        flash=flash,
+        bufs=bufs,
+        req_counter=torch.tensor(n_pre, dtype=I32, device=device),
+        salt=torch.tensor(salt, dtype=I32, device=device),
+        last_submit=last_submit,
+        metrics=Metrics.zero(
+            max(cfg.fabric.num_tenants, getattr(wl, "num_tenants", 1)),
+            device,
+        ),
+    )
+
+
+def engine_round(
+    state: EngineState,
+    cfg: EngineConfig,
+    ssd: SSDConfig,
+    wl: "Workload | WorkloadConfig",
+    plat: PlatformModel,
+) -> EngineState:
+    wl = as_workload(wl)
+    pipe = DevicePipeline(cfg, ssd, plat)
+    q, f = cfg.num_sqs, cfg.fetch_width
+    device = state.clock.device
+
+    # -- 1. frontend fetch ---------------------------------------------------
+    rings, disp_time, batch, fetch_done = frontend.fetch(
+        state.rings, state.clock, state.device.disp_time, cfg, plat
+    )
+    submit_t = batch.arrival                       # provisional = submit time
+    n = batch.valid.shape[0]
+    unit = frontend.fetch_row_units(cfg, device)
+
+    # -- 2-5. the device pipeline (timing + data path + flash + QP) ----------
+    dev = dataclasses.replace(state.device, disp_time=disp_time)
+    dev, cqr, res = pipe.process(
+        dev, batch, fetch_done, unit, state.cq, ring_layout=True
+    )
+
+    # -- completion metrics: the consumer observes ``reaped`` ----------------
+    valid = batch.valid
+    valid_f = valid.to(F32)
+    done = res.reaped
+    e2e = torch.where(valid, done - submit_t, 0.0)
+    tgt_lat = torch.where(valid, res.target - res.arrival, 0.0)
+    proc = torch.where(valid, res.ready - res.arrival, 0.0)
+    nvalid = torch.sum(valid_f)
+    bucket = latency_bucket(e2e)
+    lat_hist = segment_sum(valid_f, bucket, HIST_BUCKETS)
+    n_ten = state.metrics.tenant_completed.shape[0]
+    t_bucket = torch.clamp(batch.tenants, 0, n_ten - 1)
+    tenant_completed = segment_sum(valid_f, t_bucket, n_ten)
+    tenant_sum_e2e = _group_sum(e2e, t_bucket, n_ten)
+    tenant_lat_hist = segment_sum(
+        valid_f, t_bucket * HIST_BUCKETS + bucket, n_ten * HIST_BUCKETS
+    ).reshape(n_ten, HIST_BUCKETS)
+
+    # -- functional data movement --------------------------------------------
+    flash, bufs = state.flash, state.bufs
+    if cfg.emulate_data:
+        bufs = datapath.apply_reads(flash, bufs, batch, cfg.use_pallas)
+        flash = datapath.apply_writes(flash, bufs, batch)
+
+    # -- workload-driven resubmission ----------------------------------------
+    sqs = torch.arange(q, dtype=I32, device=device)
+    tenant_rows = torch.repeat_interleave(
+        wl.tenant_of_sq(sqs, cfg, state.salt), f
+    )
+    new_req = state.req_counter + torch.arange(n, dtype=I32, device=device)
+    new_lba = wl.address(new_req, ssd, state.salt)
+    new_op = wl.opcode(new_req, state.salt, tenant=tenant_rows)
+    anchor = torch.repeat_interleave(state.last_submit, f)
+    resub_t, resub_valid = wl.next_submit(
+        new_req, done, valid, anchor, cfg, ssd, state.salt
+    )
+
+    m = state.metrics
+    metrics = Metrics(
+        completed=m.completed + nvalid,
+        fetched=m.fetched + nvalid,
+        sum_e2e=m.sum_e2e + torch.sum(e2e),
+        sum_target=m.sum_target + torch.sum(tgt_lat),
+        sum_proc=m.sum_proc + torch.sum(proc),
+        last_completion=torch.maximum(
+            m.last_completion, torch.amax(torch.where(valid, done, 0.0))
+        ),
+        first_submit=torch.minimum(
+            m.first_submit, torch.amin(torch.where(valid, submit_t, FAR))
+        ),
+        lat_hist=m.lat_hist + lat_hist,
+        cache_hits=m.cache_hits,
+        tenant_completed=m.tenant_completed + tenant_completed,
+        tenant_sum_e2e=m.tenant_sum_e2e + tenant_sum_e2e,
+        tenant_lat_hist=m.tenant_lat_hist + tenant_lat_hist,
+    )
+
+    resub_t = torch.where(resub_valid, resub_t, FAR)
+    last_submit = torch.maximum(
+        state.last_submit,
+        torch.amax(
+            torch.where(resub_valid, resub_t, 0.0).reshape(q, f), dim=1
+        ),
+    )
+    # Rows are SQ-major (q, f); sort each SQ's resubmissions by time.
+    rt = resub_t.reshape(q, f)
+    order = segops.stable_argsort(rt, dim=1).long()
+
+    def pick(x):
+        return torch.gather(x.reshape(q, f), 1, order)
+
+    rings = frontend.submit_grouped(
+        rings,
+        pick(resub_t),
+        pick(new_op),
+        pick(new_lba),
+        torch.ones((q, f), dtype=I32, device=device),
+        pick(batch.buf_id),
+        pick(new_req),
+        pick(resub_valid),
+        tenant=pick(tenant_rows),
+        fused=cfg.use_compaction,
+    )
+
+    # -- clock advance: one poll quantum, or a jump over an idle gap to the
+    # earliest pending submission.
+    dpos = torch.remainder(rings.head, rings.depth).long()
+    head_t = rings.submit_time[sqs.long(), dpos]
+    head_t = torch.where(rings.tail > rings.head, head_t, FAR)
+    nxt = torch.amin(head_t)
+    stepped = state.clock + float(np.float32(cfg.poll_quantum_us))
+    clock = torch.where(nxt < FAR, torch.maximum(stepped, nxt), stepped)
+
+    return EngineState(
+        rings=rings, cq=cqr, device=dev, cache=None, clock=clock,
+        flash=flash, bufs=bufs,
+        req_counter=state.req_counter + n,
+        salt=state.salt, last_submit=last_submit, metrics=metrics,
+    )
+
+
+def run(
+    state: EngineState,
+    cfg: EngineConfig,
+    ssd: SSDConfig,
+    wl: "Workload | WorkloadConfig",
+    plat: PlatformModel,
+    rounds: int,
+) -> EngineState:
+    """Run ``rounds`` engine rounds."""
+    wl = as_workload(wl)
+    for _ in range(rounds):
+        state = engine_round(state, cfg, ssd, wl, plat)
+    return state
+
+
+def make_runner(
+    cfg: EngineConfig, ssd: SSDConfig, wl, plat: PlatformModel,
+    rounds: int, device: "torch.device | str | None" = None,
+) -> Callable[[EngineState], EngineState]:
+    """The engine runner with static configs bound, for states on
+    ``device`` (``cuda`` unless named). Unported branches raise here."""
+    device = resolve_device(device)
+    check_ported(cfg)
+    wl = as_workload(wl)
+
+    def runner(state: EngineState) -> EngineState:
+        if state.clock.device.type != device.type:
+            raise ValueError(
+                f"state is on {state.clock.device}, runner on {device}"
+            )
+        return run(state, cfg, ssd, wl, plat, rounds)
+
+    return runner
+
+
+def aggregate_iops(state: EngineState) -> torch.Tensor:
+    """Virtual IOPS of the emulated drive (one drive in this port)."""
+    return torch.sum(state.metrics.iops())
+
+
+def simulate(
+    cfg: EngineConfig,
+    ssd: SSDConfig,
+    wl: "Workload | WorkloadConfig",
+    plat: Optional[PlatformModel] = None,
+    rounds: int = 64,
+    block_words: int = 16,
+    num_devices: int = 1,
+    device: "torch.device | str | None" = None,
+) -> EngineState:
+    """Convenience: init + run on ``device``. Returns the final state."""
+    if num_devices != 1:
+        raise NotImplementedError(
+            "num_devices > 1 (the multi-drive array) is not ported yet "
+            "(ROADMAP A11)"
+        )
+    plat = plat or PlatformModel()
+    device = resolve_device(device)
+    state = init_state(cfg, ssd, wl, block_words, device=device)
+    return make_runner(cfg, ssd, wl, plat, rounds, device)(state)

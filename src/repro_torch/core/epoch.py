@@ -1,0 +1,75 @@
+"""The admission epoch: one fetched batch's view of the timing core
+(port of ``repro/core/epoch.py``).
+
+An ``Epoch`` packages ``(arrival, ready, tenant, valid, unit, layout)``
+for the global timing lock (``device.acquire_lock``) and the timing
+model. ``layout == "ring"`` promises the SQ-major fixed-width row blocks
+of ``frontend._gather_entries`` (units are contiguous ``N // U`` slabs),
+which turns per-unit reductions into reshapes; ``"direct"`` uses
+segmented forms on the non-decreasing ``unit`` key.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.types import I32, RequestBatch
+
+
+@dataclasses.dataclass(frozen=True)
+class Epoch:
+    """One fetched batch's admission state (struct of (N,) tensors)."""
+
+    arrival: torch.Tensor  # (N,) f32 evolving per-row time cursor
+    ready: torch.Tensor    # (N,) f32 post-fabric-TX device arrival times
+    tenant: torch.Tensor   # (N,) i32 QoS class per row
+    valid: torch.Tensor    # (N,) bool
+    unit: torch.Tensor     # (N,) i32 non-decreasing service-unit ids
+    layout: str = "direct"  # "ring" | "direct"
+
+    @staticmethod
+    def from_batch(
+        batch: RequestBatch,
+        ready: torch.Tensor,
+        unit: torch.Tensor,
+        layout: str,
+    ) -> "Epoch":
+        """Admission view of a fetched batch; ``ready`` is the post-TX
+        fetch-done vector (== raw fetch times on a local drive)."""
+        return Epoch(
+            arrival=ready, ready=ready, tenant=batch.tenants,
+            valid=batch.valid, unit=unit, layout=layout,
+        )
+
+    @property
+    def is_ring(self) -> bool:
+        return self.layout == "ring"
+
+    def unit_counts(self, num_units: int) -> torch.Tensor:
+        """(U,) valid-request count per unit (exact integer reduction)."""
+        v = self.valid.to(I32)
+        if self.is_ring:
+            return torch.sum(v.reshape(num_units, -1), dim=1, dtype=I32)
+        out = torch.zeros((num_units,), dtype=I32, device=v.device)
+        return out.index_add_(0, self.unit.long(), v)
+
+    def unit_ready(self, num_units: int) -> torch.Tensor:
+        """(U,) batch ready time per unit: the max over its valid rows
+        (empty units reduce to 0)."""
+        masked = torch.where(self.valid, self.ready, 0.0)
+        if self.is_ring:
+            return torch.amax(masked.reshape(num_units, -1), dim=1)
+        out = torch.full((num_units,), float("-inf"), dtype=masked.dtype,
+                         device=masked.device)
+        return out.scatter_reduce_(
+            0, self.unit.long(), masked, "amax", include_self=True
+        )
+
+    def admit(self, lock_done: torch.Tensor) -> "Epoch":
+        """``arrival = max(ready, lock_done[unit])``: a row dispatches once
+        its unit holds the lock and its own frame has landed."""
+        return dataclasses.replace(
+            self,
+            arrival=torch.maximum(self.ready, lock_done[self.unit.long()]),
+        )

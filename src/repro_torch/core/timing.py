@@ -1,0 +1,219 @@
+"""NVMeVirt simple timing model + SwarmIO aggregated batch updates
+(port of ``repro/core/timing.py``).
+
+For request i in dispatch order on instance k:
+
+    start_i      = max(arrival_i, busy[k])
+    busy[k]      = start_i + Sched
+    completion_i = max(start_i + Sched, arrival_i + L_min)
+
+``aggregated_update`` computes this for a whole fetched batch with one
+segmented (max,+) prefix scan and a single write of the shared state,
+through the closed form
+
+    b_j = max(arrival_j - j*Sched, b_{j-1}),  b_{-1} = busy[k]
+    start_j = b_j + j*Sched,   busy'[k] = b_last + m_k*Sched
+
+where j is the within-instance rank inside the batch. Eager PyTorch
+rounds every multiply and add on its own (no FMA contraction), on the CPU
+and on the card alike.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.segops import (
+    NEG,
+    compact_epoch,
+    segment_max,
+    segment_sum,
+    segmented_prefix_max,
+    sort_by_segment,
+    unsort,
+)
+from repro_torch.core.types import (
+    F32, I32, RequestBatch, SSDConfig, TimingState,
+)
+
+
+def f32(x: float) -> float:
+    """A Python float rounded to float32 (the reference's jnp.float32)."""
+    return float(np.float32(x))
+
+
+def lba_hash_instance(lba: torch.Tensor, n_instances: int) -> torch.Tensor:
+    """Map a request to an instance by address (channel striping)."""
+    h = ((lba.to(torch.int64) & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    return ((h >> 16) % n_instances).to(I32)
+
+
+def assign_rr(
+    rr: torch.Tensor, valid: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Round-robin instance assignment in dispatch order. Invalid rows get
+    an arbitrary instance and do not advance the cursor. Returns
+    (inst, rr')."""
+    pos = torch.cumsum(valid.to(I32), 0, dtype=I32) - 1
+    inst = torch.remainder(rr + torch.clamp(pos, min=0), k)
+    n_valid = torch.sum(valid.to(I32), dtype=I32)
+    return inst.to(I32), torch.remainder(rr + n_valid, k).to(I32)
+
+
+def assign_instances(
+    state: TimingState, batch: RequestBatch, ssd: SSDConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Instance per request (dispatch order) + advanced round-robin cursor."""
+    k = ssd.n_instances
+    if ssd.routing == "lba_hash":
+        return lba_hash_instance(batch.lba, k), state.rr
+    return assign_rr(state.rr, batch.valid, k)
+
+
+def _sorted_batch_core(
+    busy_init: torch.Tensor,  # (K,) f32
+    s_arr: torch.Tensor,      # (N,) f32 arrivals in instance-major layout
+    s_inst: torch.Tensor,     # (N,) i32 instance key, K for invalid rows
+    s_valid: torch.Tensor,    # (N,) bool
+    head: torch.Tensor,       # (N,) bool segment starts
+    rank: torch.Tensor,       # (N,) i32 within-segment rank
+    order: torch.Tensor,      # (N,) i32 sorted index -> dispatch index
+    ssd: SSDConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (max,+) closed form on an instance-major layout, shared by the
+    stable-sort and the compacted layouts (one expression tree)."""
+    k = ssd.n_instances
+    sched = f32(ssd.sched_us)
+    lmin = f32(ssd.l_min_us)
+
+    safe_inst = torch.clamp(s_inst, 0, k - 1)
+    seed = busy_init[safe_inst.long()]
+    rank_f = rank.to(F32)
+    a = s_arr - rank_f * sched
+    a = torch.where(head, torch.maximum(a, seed), a)
+    a = torch.where(s_valid, a, NEG)
+    b = segmented_prefix_max(a, head)
+
+    start = b + rank_f * sched
+    comp_sorted = torch.maximum(start + sched, s_arr + lmin)
+    comp_sorted = torch.where(s_valid, comp_sorted, 0.0)
+
+    seg_counts = segment_sum(s_valid.to(F32), safe_inst, k)
+    last_b = segment_max(torch.where(s_valid, b, NEG), safe_inst, k)
+    new_busy = torch.where(
+        seg_counts > 0, last_b + seg_counts * sched, busy_init
+    )
+    return unsort(comp_sorted, order), new_busy
+
+
+def aggregated_batch_times(
+    busy_init: torch.Tensor,
+    arrival: torch.Tensor,
+    inst: torch.Tensor,
+    valid: torch.Tensor,
+    ssd: SSDConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vectorized exact batch timing. Returns (completion, new_busy)."""
+    k = ssd.n_instances
+    key = torch.where(valid, inst, k).to(I32)  # invalid rows sort last
+    order, head, rank = sort_by_segment(key)
+    o = order.long()
+    return _sorted_batch_core(
+        busy_init, arrival[o], key[o], valid[o], head, rank, order, ssd,
+    )
+
+
+def compact_rr_batch_times(
+    busy_init: torch.Tensor,  # (K,) f32 shared busy-until state
+    arrival: torch.Tensor,    # (N,) f32 dispatch-order arrivals
+    rr: torch.Tensor,         # ()  i32 round-robin cursor
+    valid: torch.Tensor,      # (N,) bool
+    ssd: SSDConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort-free aggregated timing on the compacted epoch: round-robin
+    routing gives the instance-major layout in closed form, and the float
+    arithmetic runs through the same ``_sorted_batch_core``. Returns
+    ``(completion, new_busy, rr')``."""
+    k = ssd.n_instances
+    n = arrival.shape[0]
+    dev = arrival.device
+    plan = compact_epoch(valid)
+    pos, n_valid = plan.pos, plan.n_valid
+    idx = torch.arange(n, dtype=I32, device=dev)
+
+    q_of_c = torch.remainder(torch.arange(k, dtype=I32, device=dev) - rr, k)
+    m_c = torch.clamp(
+        -torch.div(-(n_valid - q_of_c), k, rounding_mode="floor"), min=0
+    )
+    offsets = torch.cumsum(m_c, 0, dtype=I32) - m_c
+
+    inst_row = torch.remainder(rr + pos, k)
+    pk = torch.div(pos, k, rounding_mode="floor")
+    spos = torch.where(valid, offsets[inst_row.long()] + pk, pos)
+    rank_row = torch.where(valid, pk, pos - n_valid)
+    key_row = torch.where(valid, inst_row, k)
+    page = torch.stack([idx, rank_row, key_row], dim=-1).to(I32)
+    s = unsort(page, spos)
+    order, rank, s_inst = s[:, 0], s[:, 1], s[:, 2]
+    head = rank == 0
+
+    completion, new_busy = _sorted_batch_core(
+        busy_init, arrival[order.long()], s_inst, valid[order.long()], head,
+        rank, order, ssd,
+    )
+    return completion, new_busy, torch.remainder(rr + n_valid, k).to(I32)
+
+
+def aggregated_update(
+    state: TimingState,
+    batch: RequestBatch,
+    ssd: SSDConfig,
+    use_compaction: bool = False,
+) -> Tuple[TimingState, torch.Tensor]:
+    """SwarmIO aggregated timing update (single shared-state write)."""
+    if use_compaction and ssd.routing == "round_robin":
+        completion, new_busy, rr = compact_rr_batch_times(
+            state.busy_until, batch.arrival, state.rr, batch.valid, ssd
+        )
+        return TimingState(new_busy, rr), completion
+    inst, rr = assign_instances(state, batch, ssd)
+    completion, new_busy = aggregated_batch_times(
+        state.busy_until, batch.arrival, inst, batch.valid, ssd
+    )
+    return TimingState(new_busy, rr), completion
+
+
+def update(
+    state: TimingState,
+    batch: RequestBatch,
+    ssd: SSDConfig,
+    mode: str = "aggregated",
+    use_compaction: bool = False,
+    dispatch_order: "torch.Tensor | None" = None,
+) -> Tuple[TimingState, torch.Tensor]:
+    """Dispatch to the configured update mechanism.
+
+    ``dispatch_order`` is an optional (N,) row permutation giving the
+    order requests enter the shared timing state: the batch is gathered
+    through it, priced, and completions scatter back (data movement only).
+    Only the aggregated mode is ported; the per-request baseline is
+    rejected when the pipeline is built (``DevicePipeline``).
+    """
+    if dispatch_order is not None:
+        d = dispatch_order.long()
+        permuted = dataclasses.replace(
+            batch,
+            arrival=batch.arrival[d],
+            lba=batch.lba[d],
+            valid=batch.valid[d],
+        )
+        state, comp_p = update(state, permuted, ssd, mode, use_compaction)
+        return state, unsort(comp_p, dispatch_order)
+    if mode == "aggregated":
+        return aggregated_update(state, batch, ssd, use_compaction)
+    raise NotImplementedError(
+        f"timing mode {mode!r} is not ported (ROADMAP A3)"
+    )

@@ -1,0 +1,112 @@
+"""Plain PyTorch versions of the port's kernels (port of
+``repro/kernels/ref.py``, plus the sequential contracts of
+``die_contention`` and ``fused_reap``).
+
+Each function computes exactly what its CUDA kernel computes, on any
+device. ``kernels/ops.py`` sends a CPU tensor here; the CUDA kernels are
+held against these functions on the card.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import segops
+from repro_torch.core.types import F32, I32
+
+NEG = -3e38
+
+
+def block_gather_ref(flash: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather rows: ``out[i] = flash[idx[i]]`` with JAX's index rule — a
+    negative index counts from the end, then indices clamp into range."""
+    nb = flash.shape[0]
+    safe = torch.where(idx < 0, idx + nb, idx).clamp(0, nb - 1).long()
+    return flash[safe]
+
+
+def seg_scan_ref(values: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
+    """Segmented inclusive prefix max restarting where ``heads[i]``; the
+    rows before the first head continue a segment seeded with ``NEG`` (the
+    sequential fold ``run = where(h, v, max(run, v))`` from ``run = NEG``)."""
+    out = segops.segmented_prefix_max(values, heads)
+    no_head_yet = torch.cumsum(heads.to(I32), 0, dtype=I32) == 0
+    return torch.where(no_head_yet, torch.maximum(out, _neg(values)), out)
+
+
+def _neg(like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), NEG, dtype=F32, device=like.device)
+
+
+def die_contention_ref(
+    ready: torch.Tensor,      # (N,) f32
+    cost: torch.Tensor,       # (N,) f32
+    chip: torch.Tensor,       # (N,) i32 in [0, K)
+    event: torch.Tensor,      # (N,) bool
+    chip_busy: torch.Tensor,  # (K,) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential per-die fold, dies in parallel: step r advances
+    every die by its r-th event row (row order within a die), each step
+    the same ``max(cur, ready) + cost`` the sequential loop performs."""
+    n = ready.shape[0]
+    k = chip_busy.shape[0]
+    dev = ready.device
+    key = torch.where(event, chip, k)
+    _, rank, counts, _ = segops.counting_positions(key, k + 1)
+    steps = int(counts[:k].max().item()) if n and k else 0
+    # table[c, r] = row of die c's r-th event (n where there is none)
+    table = torch.full((k + 1, max(steps, 1)), n, dtype=torch.int64,
+                       device=dev)
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    # Non-event rows all land on the discarded row k, column 0.
+    table[key.long(), torch.where(event, rank, 0).long()] = rows
+    table = table[:k]
+    cur = chip_busy.clone()
+    busy = torch.zeros((n + 1,), dtype=F32, device=dev)
+    ready_p = torch.cat([ready, torch.zeros((1,), dtype=F32, device=dev)])
+    cost_p = torch.cat([cost, torch.zeros((1,), dtype=F32, device=dev)])
+    for r in range(steps):
+        rows_r = table[:, r]
+        has = rows_r < n
+        b = torch.maximum(cur, ready_p[rows_r]) + cost_p[rows_r]
+        cur = torch.where(has, b, cur)
+        busy[rows_r] = torch.where(has, b, 0.0)
+    return busy[:n], cur
+
+
+def fused_reap_ref(
+    done_time: torch.Tensor,     # (Q, D) f32
+    visible_time: torch.Tensor,  # (Q, D) f32
+    req_id_ring: torch.Tensor,   # (Q, D) i32
+    tail: torch.Tensor,          # (Q,) i32
+    key: torch.Tensor,           # (N,) i32, == Q for invalid rows
+    done: torch.Tensor,          # (N,) f32
+    req_id: torch.Tensor,        # (N,) i32
+    valid: torch.Tensor,         # (N,) bool
+):
+    """The one-pass neutral CQ post: every valid row of CQ
+    ``c = clip(key, 0, Q-1)`` writes ``(done, done, req_id)`` at
+    ``(tail[c] + rank) % D`` where ``rank`` counts the earlier valid rows
+    of its CQ; where several rows land on one slot the last one wins.
+    Returns the new rings and the (Q,) per-CQ counts."""
+    q, d = done_time.shape
+    safe = key.clamp(0, q - 1)
+    k2 = torch.where(valid, safe, q)
+    _, rank, counts, _ = segops.counting_positions(k2, q + 1)
+    counts = counts[:q]
+    pos = torch.remainder(tail[safe.long()] + rank, d)
+    # Only the last row posting to a slot writes (no later row of the
+    # same CQ has rank + D): scatters of the winners have no duplicates.
+    win = valid & (rank.long() + d >= counts[safe.long()].long())
+    flat = torch.where(win, safe.long() * d + pos.long(), q * d)
+
+    def post(ring, vals):
+        out = torch.cat([ring.reshape(-1), ring.new_zeros((1,))])
+        out[flat] = vals
+        return out[: q * d].reshape(q, d)
+
+    return (
+        post(done_time, done), post(visible_time, done),
+        post(req_id_ring, req_id), counts,
+    )

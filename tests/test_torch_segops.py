@@ -1,0 +1,165 @@
+"""Port of ``core/segops.py`` against the reference, function by function.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Integer results (ranks, orders, positions, counts, hashes) must be equal.
+Float results must be bit-identical: the segmented max is exact in any
+order, and the port's ``associative_scan`` combines the same pairs in
+the same tree as ``lax.associative_scan``, so even the fractional-cost
+queueing scan matches bit for bit. The kernel route
+(``queueing_scan(use_pallas=True)``) re-associates the cost cumsum and is
+exact on integer-valued costs, as in the reference.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import segops as js
+from repro_torch.core import segops as ts
+
+SIZES = [1, 2, 3, 7, 64, 255, 1000]
+
+
+def t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def j(x):
+    return jnp.asarray(x)
+
+
+def same(a, b):
+    a, b = np.asarray(a), b.numpy() if isinstance(b, torch.Tensor) else b
+    assert a.dtype == b.dtype, (a.dtype, b.dtype)
+    assert a.shape == b.shape
+    np.testing.assert_array_equal(
+        np.ascontiguousarray(a).reshape(-1).view(np.uint8),
+        np.ascontiguousarray(b).reshape(-1).view(np.uint8),
+    )
+
+
+def keys(n, k, seed, sorted_=False):
+    x = np.random.default_rng(seed).integers(0, k, n).astype(np.int32)
+    return np.sort(x) if sorted_ else x
+
+
+def test_hash_and_uniform01():
+    x = np.random.default_rng(0).integers(0, 2**31 - 1, 5000, dtype=np.int64)
+    x = x.astype(np.int32)
+    ref = np.asarray(js.hash_u32(j(x)))
+    out = ts.hash_u32(t(x)).numpy()
+    np.testing.assert_array_equal(ref.astype(np.int64), out)
+    same(js.uniform01(j(ref)), ts.uniform01(t(out)))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_segmented_prefix_max(n):
+    rng = np.random.default_rng(n)
+    v = rng.uniform(-1e3, 1e3, n).astype(np.float32)
+    h = rng.random(n) < 0.2
+    same(jax.jit(js.segmented_prefix_max)(j(v), j(h)),
+         ts.segmented_prefix_max(t(v), t(h)))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_associative_scan_uses_the_reference_tree(n):
+    """A float sum is order-sensitive: equal bits mean equal trees."""
+    v = np.random.default_rng(n).uniform(0, 1, n).astype(np.float32)
+    ref = jax.lax.associative_scan(jnp.add, j(v))
+    out = ts.associative_scan(lambda a, b: [a[0] + b[0]], [t(v)])[0]
+    same(ref, out)
+
+
+@jax.jit
+def _ref_plans(k, g, v):
+    return (js.stable_argsort(k), js.make_sort_plan(k), js.presorted_plan(g),
+            js.sort_by_segment(k), js.segment_rank(k),
+            js.masked_presorted_rank(g, v))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_sort_plans_and_ranks(n):
+    k = keys(n, 5, n)
+    g = np.sort(k)
+    v = np.random.default_rng(n + 1).random(n) < 0.6
+    ref = _ref_plans(j(k), j(g), j(v))
+    out = (ts.stable_argsort(t(k)), ts.make_sort_plan(t(k)),
+           ts.presorted_plan(t(g)), ts.sort_by_segment(t(k)),
+           ts.segment_rank(t(k)), ts.masked_presorted_rank(t(g), t(v)))
+    same(ref[0], out[0])
+    for rp, tp in [(ref[1], out[1]), (ref[2], out[2])]:
+        same(rp.order, tp.order)
+        same(rp.heads, tp.heads)
+        same(rp.rank, tp.rank)
+    for a, b in zip(ref[3], out[3]):
+        same(a, b)
+    same(ref[4], out[4])
+    same(ref[5], out[5])
+
+
+@pytest.mark.parametrize("p_valid", [0.0, 0.4, 1.0])
+def test_compact_epoch(p_valid):
+    v = np.random.default_rng(3).random(300) < p_valid
+    rp, tp = js.compact_epoch(j(v)), ts.compact_epoch(t(v))
+    same(rp.pos, tp.pos)
+    same(rp.n_valid, tp.n_valid)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_counting_sort(n):
+    k = keys(n, 7, n + 5)
+    ref = jax.jit(js.counting_positions, static_argnums=1)(j(k), 7)
+    for a, b in zip(ref, ts.counting_positions(t(k), 7)):
+        same(a, b)
+    rp = jax.jit(js.counting_sort_plan, static_argnums=1)(j(k), 7)
+    tp = ts.counting_sort_plan(t(k), 7)
+    same(rp.order, tp.order)
+    same(rp.heads, tp.heads)
+    same(rp.rank, tp.rank)
+
+
+@pytest.mark.parametrize("width", [1, 4, 16])
+def test_block_rank_and_counts(width):
+    v = np.random.default_rng(width).random(64) < 0.5
+    same(js.block_masked_rank(j(v), width), ts.block_masked_rank(t(v), width))
+    same(js.block_counts(j(v), width), ts.block_counts(t(v), width))
+
+
+def _scan_case(n, seed, integer):
+    rng = np.random.default_rng(seed)
+    if integer:
+        ready = rng.integers(0, 500, n).astype(np.float32)
+        cost = rng.integers(0, 20, n).astype(np.float32)
+        seed_v = rng.integers(0, 300, n).astype(np.float32)
+    else:
+        ready = rng.uniform(0, 500, n).astype(np.float32)
+        cost = (rng.uniform(0, 2, n) + 0.01).astype(np.float32)
+        seed_v = rng.uniform(0, 300, n).astype(np.float32)
+    heads = rng.random(n) < 0.1
+    heads[0] = True
+    return ready, cost, heads, seed_v
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_queueing_scan_fractional_costs_bit_exact(n):
+    args = _scan_case(n, n, integer=False)
+    same(jax.jit(js.queueing_scan)(*map(j, args)),
+         ts.queueing_scan(*map(t, args)))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_queueing_scan_kernel_route_integer_costs(n):
+    """The seg_scan route against the reference's Pallas route (run in
+    interpret mode) and against the plain scan: exact on integer costs."""
+    args = _scan_case(n, n + 100, integer=True)
+    ref = js.queueing_scan(*map(j, args), use_pallas=True)
+    out = ts.queueing_scan(*map(t, args), use_pallas=True)
+    same(ref, out)
+    same(ref, ts.queueing_scan(*map(t, args)))
+
+
+def test_true_div_and_seq_cumsum():
+    x = np.random.default_rng(9).uniform(0, 1e5, (5, 9)).astype(np.float32)
+    same(j(x) / 30000.0, ts.true_div(t(x), 30000.0))
+    same(jnp.cumsum(j(x), axis=1), ts.seq_cumsum(t(x), 1))
