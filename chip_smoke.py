@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then
-runs six phases, printing one JSON line each:
+runs eight phases, printing one JSON line each:
 
   env              nvidia-smi's card name and power limit, torch/CUDA
                    versions, kernel build seconds
   kernels          every kernel against its plain PyTorch version on the
-                   card, exact equality, at the main path's shapes and at
-                   edge shapes; median CUDA-event times and bounds
+                   card at the main paths' shapes and at edge shapes
+                   (exact equality for the engine's four kernels, the
+                   stated tolerances for the two attention kernels);
+                   median CUDA-event times, bounds and library times
   main_path_read   the paper's 40-MIOPS drive (``local_1drive``: 32 SQs x
                    1024, fetch 256, 16 units, DSA datapath, closed loop at
                    io_depth 256) for 24 rounds with the block_gather,
@@ -22,6 +24,16 @@ runs six phases, printing one JSON line each:
   cpu_vs_card      stock local_1drive, kernels off, on the card and on the
                    CPU: integer leaves equal, float leaves within a stated
                    ULP bound
+  serve_tier       ``python -m repro_torch.launch.serve --arch starcoder2-3b
+                   --iops 40e6``'s objects at full width (batch 4, prompt
+                   32, 16 tokens) with the attention kernels on: generate
+                   plus the SSD-backed KV tier, whose virtual-time stats
+                   must reproduce the reference's; the tier again with
+                   fused_reap on, bit-identical
+  serve_long       generate at full width, batch 8, prompt 4096, 128
+                   tokens, kernels on and timed; then the plain path,
+                   teacher-forced on the kernel run's tokens, must agree
+                   on the prefill's and every decode step's logits
 
 Then one JSON line listing the kernels, the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -42,6 +54,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 ROUNDS = 24
 SUM_LEAF_ULP = 256          # cpu_vs_card bound for the metrics' float sums
 
@@ -106,22 +119,38 @@ def bitwise_equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def close_enough(got, want):
+    """The attention kernels' tolerance against their plain versions:
+    both compute in float32 with sums in another order, so float32
+    outputs agree to 1e-4 absolute (outputs are O(1)) and bf16 outputs to
+    one bf16 rounding step (2^-7 relative, plus 1e-5)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if got.dtype == torch.bfloat16:
+        return bool(((g - w).abs() <= w.abs() * 2.0 ** -7 + 1e-5).all())
+    return bool(((g - w).abs() <= 1e-4).all())
 
 
 # -- phase: kernels -----------------------------------------------------------
 
 def kernel_cases(dev):
-    """(name, kernel fn, plain fn, list of (label, args)) per kernel."""
+    """(name, kernel fn, plain fn, list of (label, (args, kwargs))) per
+    kernel; the first case of each is the main path's shape."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.block_gather import block_gather
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.die_contention import die_contention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_reap import fused_reap
     from repro_torch.kernels.seg_scan import seg_scan
 
@@ -133,7 +162,7 @@ def kernel_cases(dev):
     def ss(n, p_head):
         v = rng.uniform(-1e4, 1e4, n).astype(np.float32)
         h = rng.random(n) < p_head
-        return (t(v), t(h))
+        return (t(v), t(h)), {}
 
     seg = [("main n=8192", ss(8192, 0.02)), ("ragged n=8229", ss(8229, 0.02)),
            ("n=5", ss(5, 0.3)), ("n=1", ss(1, 0.0)),
@@ -147,7 +176,7 @@ def kernel_cases(dev):
             np.int32)
         event = rng.random(n) < p_event
         cur = rng.integers(0, 3000, k).astype(np.float32)
-        return (t(ready), t(cost), t(chip), t(event), t(cur))
+        return (t(ready), t(cost), t(chip), t(event), t(cur)), {}
 
     die = [("main N=8192 K=32", dc(8192, 32, 0.3)),
            ("no event rows", dc(8192, 32, 0.0)),
@@ -166,7 +195,8 @@ def kernel_cases(dev):
         key = np.where(valid | bad_keys, key, q).astype(np.int32)
         done = rng.uniform(0, 1e5, n).astype(np.float32)
         req = rng.integers(0, 1 << 30, n).astype(np.int32)
-        return tuple(t(x) for x in (dt, vt, rid, tail, key, done, req, valid))
+        return tuple(t(x) for x in (dt, vt, rid, tail, key, done, req,
+                                    valid)), {}
 
     reap = [("main Q=32 D=1024 N=8192", fr(32, 1024, 8192, 0.9)),
             ("all rows invalid", fr(32, 1024, 8192, 0.0)),
@@ -179,7 +209,7 @@ def kernel_cases(dev):
     def bg(nb, width, n, dtype, lo=0, hi=None):
         flash = torch.randn(nb, width, device=dev).to(dtype)
         idx = rng.integers(lo, nb if hi is None else hi, n).astype(np.int32)
-        return (flash, t(idx))
+        return (flash, t(idx)), {}
 
     gather = [("main (16384,16) f32 n=8192", bg(16384, 16, 8192,
                                                 torch.float32)),
@@ -191,33 +221,135 @@ def kernel_cases(dev):
                                           -50, 200)),
               ("n=0", bg(64, 16, 0, torch.float32))]
 
+    bf16 = torch.bfloat16
+
+    def fa(b, hq, hkv, s_len, dtype=bf16, **kw):
+        g = torch.Generator(device=dev).manual_seed(s_len + hq)
+
+        def x(h):
+            return torch.randn(b, h, s_len, 128, generator=g, device=dev,
+                               dtype=dtype)
+
+        return (x(hq), x(hkv), x(hkv)), kw
+
+    # Main: starcoder2-3b prefill of the serve_long phase. Edge: gemma2's
+    # window 64 and softcap 50 at its 32/16 heads, groups 1/2/12, ragged
+    # S, a single row, float32.
+    flash = [("main starcoder2 (8,24,4096,128) bf16", fa(8, 24, 2, 4096)),
+             ("gemma2 window 64 softcap 50, group 2, S=1000",
+              fa(1, 32, 16, 1000, window=64, logit_softcap=50.0,
+                 scale=144 ** -0.5)),
+             ("group 1, S=777", fa(2, 4, 4, 777)),
+             ("group 12, S=1, f32", fa(1, 24, 2, 1, torch.float32)),
+             ("f32 group 12 window 100 S=513",
+              fa(1, 24, 2, 513, torch.float32, window=100)),
+             ("not causal, S=300", fa(1, 4, 2, 300, causal=False))]
+
+    def da(b, hq, hkv, s_len, lens, dtype=bf16, **kw):
+        g = torch.Generator(device=dev).manual_seed(s_len + hq + b)
+
+        def x(*shape):
+            return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+
+        return (x(b, hq, 128), x(b, hkv, s_len, 128), x(b, hkv, s_len, 128),
+                t(np.asarray(lens, np.int32))), kw
+
+    # Main: serve_long's decode, q (8,24,128) against the 4224-row caches
+    # at lengths 4097-4224. Edge: gemma2's window and softcap, groups
+    # 1/2/12, lengths far below S, ragged S, float32.
+    decode = [("main starcoder2 q (8,24,128) cache 4224 bf16",
+               da(8, 24, 2, 4224, np.linspace(4097, 4224, 8).astype(int))),
+              ("gemma2 window 64 softcap 50, group 2",
+               da(2, 32, 16, 4224, [4224, 100], window=64,
+                  logit_softcap=50.0, scale=144 ** -0.5)),
+              ("group 1, lengths below S", da(4, 4, 4, 1000, [1, 17, 300, 999])),
+              ("group 12, ragged S=1000, f32",
+               da(2, 24, 2, 1000, [1000, 513], torch.float32)),
+              ("f32 window 100 softcap 30",
+               da(3, 8, 4, 700, [700, 64, 1], torch.float32, window=100,
+                  logit_softcap=30.0))]
+
     return [
         ("seg_scan", seg_scan, ref.seg_scan_ref, seg),
         ("die_contention", die_contention, ref.die_contention_ref, die),
         ("fused_reap", fused_reap, ref.fused_reap_ref, reap),
         ("block_gather", block_gather, ref.block_gather_ref, gather),
+        ("flash_attention", flash_attention, ref.attention_ref, flash),
+        ("decode_attention", decode_attention, ref.decode_attention_ref,
+         decode),
     ]
 
 
-def kernel_work(name, args):
-    """(bytes, operations) the function needs on these inputs."""
+EXACT = ("seg_scan", "die_contention", "fused_reap", "block_gather")
+
+
+def kernel_work(name, args, kw):
+    """(bytes, operations, peak operations/s) the function needs on these
+    inputs: each input read once, each output written once, and for the
+    attention kernels the products over the (row, column) pairs the masks
+    keep, at the bf16 tensor-core peak."""
     import torch
 
     if name == "seg_scan":
         n = args[0].numel()
-        return n * (4 + 1 + 4), n
+        return n * (4 + 1 + 4), n, F32_OPS_PER_S
     if name == "die_contention":
         n, k = args[0].numel(), args[4].numel()
         ev = int(args[3].sum())
-        return n * (4 + 4 + 4 + 1 + 4) + 2 * 4 * k, 2 * ev
+        return n * (4 + 4 + 4 + 1 + 4) + 2 * 4 * k, 2 * ev, F32_OPS_PER_S
     if name == "fused_reap":
         q, d = args[0].shape
         n = args[4].numel()
-        return 2 * q * d * 12 + 2 * 4 * q + n * 13, 0
-    flash, idx = args
-    rows = torch.unique(idx.clamp(0, flash.shape[0] - 1)).numel()
-    row_bytes = flash.shape[1] * flash.element_size()
-    return rows * row_bytes + idx.numel() * 4 + idx.numel() * row_bytes, 0
+        return 2 * q * d * 12 + 2 * 4 * q + n * 13, 0, F32_OPS_PER_S
+    if name == "block_gather":
+        flash, idx = args
+        rows = torch.unique(idx.clamp(0, flash.shape[0] - 1)).numel()
+        row_bytes = flash.shape[1] * flash.element_size()
+        return (rows * row_bytes + idx.numel() * 4 + idx.numel() * row_bytes,
+                0, F32_OPS_PER_S)
+    window = kw.get("window")
+    if name == "flash_attention":
+        q, k, v = args
+        b, hq, s_len, d = q.shape
+        rows = torch.arange(s_len, device=q.device)[:, None]
+        cols = torch.arange(s_len, device=q.device)[None, :]
+        keep = cols <= rows if kw.get("causal", True) else cols >= 0
+        if window is not None:
+            keep = keep & (cols > rows - window)
+        pairs = int(keep.sum()) * b * hq
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        return nbytes, 4 * d * pairs, BF16_OPS_PER_S
+    q, kc, vc, lengths = args
+    b, hq, d = q.shape
+    hkv, s_len = kc.shape[1], kc.shape[2]
+    lens = lengths.clamp(0, s_len).long()
+    lo = (lens - window).clamp(min=0) if window is not None else 0 * lens
+    rows = int((lens - lo).sum())
+    nbytes = (2 * q.numel() * q.element_size() + lengths.numel() * 4
+              + 2 * rows * hkv * d * kc.element_size())
+    return nbytes, 4 * d * rows * hq, BF16_OPS_PER_S
+
+
+def library_ms(name, args):
+    """One PyTorch call computing the same function, timed as the
+    yardstick (the port never calls it): ``index_select`` for the gather,
+    SDPA for attention (causal with GQA at the prefill shape; at the
+    decode shape over the whole cache, no mask past the length)."""
+    import torch
+    import torch.nn.functional as F
+
+    if name == "block_gather":
+        return median_ms(lambda: torch.index_select(args[0], 0, args[1]))
+    if name == "flash_attention":
+        q, k, v = args
+        return median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    if name == "decode_attention":
+        q, kc, vc, _ = args
+        q4 = q[:, :, None, :]
+        return median_ms(lambda: F.scaled_dot_product_attention(
+            q4, kc, vc, enable_gqa=True))
+    return None
 
 
 def phase_kernels(dev, card):
@@ -226,36 +358,43 @@ def phase_kernels(dev, card):
     out = {}
     detail = []
     for name, kern, plain, cases in kernel_cases(dev):
-        for label, args in cases:
-            got = kern(*args)
-            want = plain(*args)
+        for label, (args, kw) in cases:
+            got = kern(*args, **kw)
+            want = plain(*args, **kw)
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
-            ok = all(bitwise_equal(g, w) for g, w in zip(got, want))
-            detail.append({"kernel": name, "case": label, "exact": ok})
-            check(ok, f"{name} [{label}] differs from its plain version")
-        main = cases[0][1]
-        got, want = kern(*main), plain(*main)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(
-            float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
-            for g, w in zip(got, want)
-        )
-        nbytes, ops = kernel_work(name, main)
-        b_ms, b_by = bound(nbytes, ops)
-        lib = None
-        if name == "block_gather":
-            lib = median_ms(lambda: torch.index_select(main[0], 0, main[1]))
+            if name in EXACT:
+                ok = all(bitwise_equal(g, w) for g, w in zip(got, want))
+            else:
+                ok = all(close_enough(g, w) for g, w in zip(got, want))
+            err = max(
+                float((g.double() - w.double()).abs().max())
+                if g.numel() else 0.0 for g, w in zip(got, want)
+            )
+            detail.append({"kernel": name, "case": label, "ok": ok,
+                           "max_abs_err": err})
+            check(ok, f"{name} [{label}] differs from its plain version "
+                      f"(max |diff| {err})")
+            del got, want
+        main, kw = cases[0][1]
+        nbytes, ops, peak = kernel_work(name, main, kw)
+        b_ms, b_by = bound(nbytes, ops, peak)
         out[name] = {
-            "ms": median_ms(lambda: kern(*main)),
-            "plain_ms": median_ms(lambda: plain(*main), reps=10),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-            "max_abs_err": err,
+            "ms": median_ms(lambda: kern(*main, **kw)),
+            "plain_ms": median_ms(lambda: plain(*main, **kw), reps=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms(name, main),
+            "max_abs_err": next(d["max_abs_err"] for d in detail
+                                if d["kernel"] == name),
         }
-    emit({"phase": "kernels", "card": card, "cases": detail,
-          "timing": out})
+        del cases, main
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "card": card,
+          "tolerance": {"engine kernels": "bit-identical",
+                        "attention f32": "|diff| <= 1e-4",
+                        "attention bf16": "|diff| <= 2^-7 |plain| + 1e-5"},
+          "cases": detail, "timing": out})
     return out
 
 
@@ -414,6 +553,151 @@ def phase_cpu_vs_card(dev, card, rounds=8):
     check(not bad, f"card and CPU states differ: {bad}")
 
 
+# -- phases: the serving path -------------------------------------------------
+
+# The reference's kv_tier.decode_tokens_per_s at the serve command's
+# starcoder2-3b full-width settings (KVTierConfig(hot_window=16,
+# page_tokens=8); SSDConfig(t_max_iops=40e6, n_instances=1000,
+# num_blocks=1<<14); EngineConfig(num_units=4, fetch_width=64); batch 4,
+# prompt 32, 16 steps), run with the JAX package on a CPU. Virtual time:
+# numbers of the emulated drive, deterministic, not speeds of any chip.
+TIER_REFERENCE = {
+    "tokens_per_s": 2094.0494563255083,
+    "avg_step_us": 1910.174560546875,
+    "iops_demand": 2638502.3149701403,
+}
+TIER_REL_TOL = 1e-5
+LOGIT_REL_BOUND = 0.05      # max |diff| <= 0.05 * max |logits|, per step
+LOGIT_MIN_COSINE = 0.999    # cosine of the two runs' logits, per step
+
+
+def phase_serve_tier(dev, card):
+    """The objects ``launch/serve.py`` builds for --arch starcoder2-3b
+    --iops 40e6 (full width, batch 4, prompt 32, 16 tokens), attention
+    kernels on: generation plus the KV tier through the engine pipeline,
+    then the tier again with fused_reap on."""
+    import torch
+
+    from repro_torch.core.types import EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import kv_tier
+    from repro_torch.serving import loop as serve_loop
+
+    cfg, params, tokens, ssd, scfg = serve.setup(
+        "starcoder2-3b", iops=40e6, device=str(dev))
+    cfg = cfg.replace(use_pallas=True)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = serve_loop.serve_with_kv_tier(cfg, params, tokens, scfg, ssd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    toks = out["tokens"]
+    check(toks.shape == (scfg.batch, scfg.gen_tokens)
+          and toks.dtype == torch.int32,
+          f"tokens {tuple(toks.shape)} {toks.dtype}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token out of range")
+    check(out["data_check_max_abs"] == 0.0, "KV tier data check failed")
+    check(out["blocks_per_step"] == 5040.0,
+          f"blocks_per_step {out['blocks_per_step']}")
+    rel = {k: abs(out[k] - v) / v for k, v in TIER_REFERENCE.items()}
+    check(all(r <= TIER_REL_TOL for r in rel.values()),
+          f"tier stats off the reference: {rel}")
+    for k in ("flash_attention", "decode_attention"):
+        check(launches[k] > 0, f"{k} did not launch on the serving path")
+
+    ecfg = EngineConfig(num_units=4, fetch_width=64, use_pallas_reap=True)
+    ops.reset_launches()
+    reap = kv_tier.decode_tokens_per_s(
+        cfg, scfg.tier, ssd, ecfg, batch=scfg.batch,
+        start_len=scfg.prompt_len, n_steps=scfg.gen_tokens, device=dev)
+    reap_launches = dict(ops.LAUNCHES)
+    check(reap_launches["fused_reap"] > 0, "fused_reap did not launch")
+    stats = {k: out[k] for k in reap}
+    check(reap == stats, f"fused_reap changed the tier: {reap} vs {stats}")
+    emit({"phase": "serve_tier", "card": card, "arch": cfg.name,
+          "stats": stats, "rel_to_reference": rel,
+          "tokens_first_row": toks[0].tolist(),
+          "prefill_s": out["prefill_s"], "decode_wall_s": out["wall_s"],
+          "wall_s_total": wall, "launches": launches,
+          "reap_run_launches": reap_launches, "reap_run_identical": True})
+    del params, out
+    torch.cuda.empty_cache()
+    return {k: launches[k] + reap_launches[k] for k in launches}
+
+
+def phase_serve_long(dev, card, batch=8, prompt=4096, gen=128):
+    """generate at full width (batch 8, prompt 4096, 128 tokens: cache
+    4224) with the kernels on, timed; then the plain path teacher-forced
+    on the kernel run's tokens, logits compared at the prefill and every
+    decode step."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serving import loop as serve_loop
+
+    cfg, params, tokens, _, scfg = serve.setup(
+        "starcoder2-3b", batch=batch, prompt=prompt, gen=gen, iops=40e6,
+        device=str(dev))
+    kern_cfg = cfg.replace(use_pallas=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    out = serve_loop.generate(kern_cfg, params, tokens, scfg,
+                              keep_logits=True)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(launches["flash_attention"] == cfg.n_layers
+          and launches["decode_attention"] == cfg.n_layers * (gen - 1),
+          f"unexpected launch counts {launches}")
+
+    plain_cfg = cfg.replace(use_pallas=False)
+    toks = out["tokens"]
+    worst_rel, worst_cos, steps = 0.0, 1.0, []
+    with torch.no_grad():
+        logits, caches = transformer.prefill(params, plain_cfg, tokens,
+                                             cache_len=prompt + gen)
+        for i in range(gen):
+            if i:
+                logits, caches = transformer.decode_step(
+                    params, plain_cfg, toks[:, i - 1], caches, prompt + i - 1)
+            k = out["logits"][i]
+            check(bool(torch.isfinite(k).all()), f"step {i}: logits not finite")
+            rel = float((k - logits).abs().max() / k.abs().max())
+            cos = float(torch.nn.functional.cosine_similarity(
+                k.reshape(1, -1).double(), logits.reshape(1, -1).double()))
+            row_cos = float(torch.nn.functional.cosine_similarity(
+                k.double(), logits.double(), dim=1).min())
+            steps.append((rel, cos, row_cos))
+            worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+    ok = worst_rel <= LOGIT_REL_BOUND and worst_cos >= LOGIT_MIN_COSINE
+    prefill_ms = out["prefill_s"] * 1e3
+    decode_ms = out["wall_s"] * 1e3 / (gen - 1)
+    emit({"phase": "serve_long", "card": card, "arch": cfg.name,
+          "batch": batch, "prompt": prompt, "gen": gen,
+          "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+          "generated_tokens_per_wall_s":
+              batch * gen / (out["prefill_s"] + out["wall_s"]),
+          "decode_tokens_per_wall_s": batch * (gen - 1) / out["wall_s"],
+          "max_memory_allocated_bytes": peak, "launches": launches,
+          "bound": {"max_abs_over_max_logit": LOGIT_REL_BOUND,
+                    "min_cosine": LOGIT_MIN_COSINE},
+          "worst_max_abs_over_max_logit": worst_rel,
+          "worst_cosine": worst_cos,
+          "worst_row_cosine": min(c for _, _, c in steps),
+          "prefill_step": steps[0],
+          "tokens_first_row_head": toks[0, :16].tolist()})
+    check(ok, f"plain and kernel logits disagree: max rel {worst_rel}, "
+              f"min cosine {worst_cos}")
+    del params, out, caches
+    torch.cuda.empty_cache()
+    return launches
+
+
 # -- main ---------------------------------------------------------------------
 
 TPU_KERNELS = {
@@ -421,6 +705,8 @@ TPU_KERNELS = {
     "die_contention": "src/repro/kernels/die_contention.py:63",
     "fused_reap": "src/repro/kernels/fused_reap.py:68",
     "block_gather": "src/repro/kernels/block_gather.py:50",
+    "flash_attention": "src/repro/kernels/flash_attention.py:141",
+    "decode_attention": "src/repro/kernels/decode_attention.py:144",
 }
 
 
@@ -457,6 +743,9 @@ def main() -> int:
             launches[k] += v
     phase_exact(dev, card)
     phase_cpu_vs_card(dev, card)
+    for counts in (phase_serve_tier(dev, card), phase_serve_long(dev, card)):
+        for k, v in counts.items():
+            launches[k] += v
 
     kernels = []
     for name in build.KERNELS:

@@ -1,4 +1,5 @@
-"""The paper's 40-MIOPS drive for the port, and a profile of its rounds.
+"""The paper's 40-MIOPS drive for the port, and profiles of its rounds and
+of the serving decode step.
 
 ``local_1drive`` is ``benchmarks/emulator_speed.py``'s configuration of
 that name: ``benchmarks/common.py::swarmio_cfg()`` (32 SQs x 1024, fetch
@@ -6,12 +7,17 @@ width 256, 16 service units, aggregated timing, coalesced DSA fetch,
 DSA datapath) on ``FUTURE_40M`` (40e6 IOPS, 512 instances, 16384 blocks).
 
     python -m repro_torch.bench [--rounds 24] [--trace PATH]
+    python -m repro_torch.bench --serve [--steps 16] [--trace PATH]
 
-runs it read-only with the kernel flags on, once to warm up and once
-under ``torch.profiler``, and prints one JSON line: wall and device
-kernel time per round, the device's idle share, device events (kernels
-and copies) and memcpy calls per round, the host-device synchronisations
-in the window, and the ops with the most device time. It needs a card.
+The first runs the drive read-only with the kernel flags on, once to warm
+up and once under ``torch.profiler``. ``--serve`` profiles the serving
+decode step instead: starcoder2-3b at full width with the attention
+kernels on, batch 8 after a 4096-token prompt (``chip_smoke.py``'s
+``serve_long``), ``--steps`` decode steps after one warm-up step. Each
+prints one JSON line: wall and device kernel time per round (or step),
+the device's idle share, device events (kernels and copies) and memcpy
+calls per round, the host-device synchronisations in the window, and the
+ops with the most device time. It needs a card.
 """
 from __future__ import annotations
 
@@ -45,24 +51,16 @@ _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaEventSynchronize")
 
 
-def profile_rounds(rounds: int, trace: "str | None") -> dict:
+def _profiled(fn, n: int, trace: "str | None") -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (after the caller's
+    warm-up) and summarise it per each of its ``n`` rounds or steps."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import engine
-    from repro_torch.core.types import PlatformModel, WorkloadConfig
-
-    dev = torch.device("cuda", 0)
-    cfg, ssd = local_1drive(emulate_data=True, use_pallas=True,
-                            use_pallas_segscan=True, use_pallas_reap=True)
-    wl = WorkloadConfig(io_depth=256)
-    state = engine.init_state(cfg, ssd, wl, device=dev)
-    runner = engine.make_runner(cfg, ssd, wl, PlatformModel(), rounds, dev)
-    runner(state)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner(state)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels, syncs, memcpys, by_name = [], 0, 0, {}
@@ -84,29 +82,73 @@ def profile_rounds(rounds: int, trace: "str | None") -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
     return {
-        "card": smi, "rounds": rounds,
-        "wall_ms_per_round": wall * 1e3 / rounds,
-        "device_ms_per_round": busy_us / 1e3 / rounds,
+        "card": smi, "rounds": n,
+        "wall_ms_per_round": wall * 1e3 / n,
+        "device_ms_per_round": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - busy_us / (wall * 1e6),
-        "device_events_per_round": len(kernels) / rounds,
+        "device_events_per_round": len(kernels) / n,
         # The window ends with one torch.cuda.synchronize() of its own.
         "host_syncs_in_window": syncs,
-        "memcpy_calls_per_round": memcpys / rounds,
+        "memcpy_calls_per_round": memcpys / n,
         "top_device_ms_per_round": {
-            k[:80]: v / 1e3 / rounds for k, v in top
+            k[:80]: v / 1e3 / n for k, v in top
         },
     }
+
+
+def profile_rounds(rounds: int, trace: "str | None") -> dict:
+    from repro_torch.core import engine
+    from repro_torch.core.types import PlatformModel, WorkloadConfig
+
+    dev = torch.device("cuda", 0)
+    cfg, ssd = local_1drive(emulate_data=True, use_pallas=True,
+                            use_pallas_segscan=True, use_pallas_reap=True)
+    wl = WorkloadConfig(io_depth=256)
+    state = engine.init_state(cfg, ssd, wl, device=dev)
+    runner = engine.make_runner(cfg, ssd, wl, PlatformModel(), rounds, dev)
+    runner(state)
+    return _profiled(lambda: runner(state), rounds, trace)
+
+
+def profile_decode(steps: int, trace: "str | None", batch: int = 8,
+                   prompt: int = 4096) -> dict:
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg, params, tokens, _, _ = serve.setup(
+        "starcoder2-3b", batch=batch, prompt=prompt, gen=steps + 2,
+        device="cuda")
+    cfg = cfg.replace(use_pallas=True)
+    with torch.no_grad():
+        logits, caches = transformer.prefill(params, cfg, tokens,
+                                             cache_len=prompt + steps + 2)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        transformer.decode_step(params, cfg, tok, caches, prompt)
+
+        def run():
+            for i in range(steps):
+                transformer.decode_step(params, cfg, tok, caches,
+                                        prompt + 1 + i)
+
+        out = _profiled(run, steps, trace)
+    return {"path": "serve decode step", "batch": batch,
+            "cache_len": prompt + steps + 2, **out}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=24)
+    ap.add_argument("--serve", action="store_true",
+                    help="profile the serving decode step instead")
+    ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.bench needs a CUDA device")
-    print(json.dumps(profile_rounds(args.rounds, args.trace)), flush=True)
+    res = (profile_decode(args.steps, args.trace) if args.serve
+           else profile_rounds(args.rounds, args.trace))
+    print(json.dumps(res), flush=True)
 
 
 if __name__ == "__main__":

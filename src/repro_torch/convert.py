@@ -1,9 +1,12 @@
-"""Carry engine state between the reference and the port.
+"""Carry engine state and model parameters between the reference and
+the port.
 
 A state is exchanged as a flat dict of numpy arrays keyed by the
 reference's pytree paths, e.g. ``"device.tstate.busy_until"`` (the field
 names of the two packages' dataclasses are the same, so the paths are
-too). Dtypes pass through unchanged: float32, int32 and bool.
+too). Dtypes pass through unchanged: float32, int32 and bool. Model
+parameters are exchanged as the reference's own nested tree of dicts and
+tuples with numpy leaves (``model_params_from_numpy``).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import EngineState
+from repro_torch.models.config import ModelConfig
 
 
 def _collect(obj, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -96,3 +100,44 @@ def engine_state_from_numpy(
     (the inverse of ``engine_state_to_numpy``). A missing leaf raises
     ``KeyError`` naming its path."""
     return _build(EngineState, leaves, "", torch.device(device))
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """numpy -> torch, bit for bit; numpy has no bfloat16 of its own, so
+    the ``ml_dtypes`` bfloat16 arrays the reference hands out travel as
+    their 16-bit patterns."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def model_params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
+    """The port's parameters on ``device`` from the reference's
+    ``transformer.init_model`` tree with numpy leaves (same keys, same
+    stacking per pattern member, same layouts). Raises ``ValueError``
+    when the tree does not fit ``cfg``."""
+    if len(tree["periods"]) != len(cfg.pattern) or len(
+        tree["remainder"]
+    ) != len(cfg.remainder):
+        raise ValueError(f"parameter tree does not match {cfg.name}'s "
+                         "layer pattern")
+    want = cfg.dtype
+
+    def conv(node, stacked: bool):
+        if isinstance(node, dict):
+            return {k: conv(v, stacked) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(conv(v, stacked) for v in node)
+        a = np.asarray(node)
+        if a.dtype.name != want:
+            raise ValueError(f"leaf of dtype {a.dtype.name}, config says "
+                             f"{want}")
+        if stacked and a.shape[0] != cfg.n_periods:
+            raise ValueError(f"stacked leaf {a.shape} lacks the "
+                             f"{cfg.n_periods} periods")
+        return _tensor(a, device)
+
+    device = torch.device(device)
+    return {k: conv(v, k == "periods") for k, v in tree.items()}

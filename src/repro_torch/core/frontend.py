@@ -4,8 +4,10 @@
 SQ entries live in contiguous ring buffers, so a coalesced fetch of n
 entries is one bulk transfer costing ``txn_base + n*sqe_bytes/bw``. The
 *distributed* frontend partitions the SQs across service units and
-fetches all units' SQs in parallel. The centralized NVMeVirt baseline is
-not ported (ROADMAP A5); ``DevicePipeline`` rejects it when built.
+fetches all units' SQs in parallel. ``submit`` and ``deal_sqs`` post a
+flat application batch (``core/client.py``). The centralized NVMeVirt
+baseline is not ported (ROADMAP A5); ``DevicePipeline`` rejects it when
+built.
 """
 from __future__ import annotations
 
@@ -15,7 +17,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.segops import scatter_last, seq_cumsum, true_div
+from repro_torch.core.segops import (
+    scatter_last,
+    segment_rank,
+    segment_sum,
+    seq_cumsum,
+    true_div,
+)
 from repro_torch.core.types import (
     F32,
     I32,
@@ -81,6 +89,38 @@ def scatter_drop(
     out = scatter_last(field.reshape((q * d,) + rest), flat.reshape(-1),
                        val.reshape((-1,) + rest))
     return out.reshape(field.shape)
+
+
+def submit(
+    rings: SQRings,
+    sq_id: torch.Tensor,        # (M,) i32 target SQ per new entry
+    submit_time: torch.Tensor,  # (M,) f32
+    opcode: torch.Tensor,
+    lba: torch.Tensor,
+    nblocks: torch.Tensor,
+    buf_id: torch.Tensor,
+    req_id: torch.Tensor,
+    valid: torch.Tensor,        # (M,) bool
+    tenant: "torch.Tensor | None" = None,
+) -> SQRings:
+    """Append entries to their SQs (ring the doorbells). Entries for one
+    SQ land in array order; callers pre-sort by submit time."""
+    q = rings.num_sqs
+    if tenant is None:
+        tenant = torch.zeros_like(sq_id)
+    sq_key = torch.where(valid, sq_id, q)
+    offset = segment_rank(sq_key)
+    row = torch.clamp(sq_key, 0, q - 1)
+    pos = torch.remainder(rings.tail[row.long()] + offset, rings.depth)
+    # Invalid rows scatter out of bounds and are dropped.
+    pos = torch.where(valid, pos, rings.depth)
+    new = (submit_time, opcode, lba, nblocks, buf_id, req_id, tenant)
+    fields = {
+        name: scatter_drop(getattr(rings, name), row, pos, val)
+        for name, val in zip(_RING_FIELDS, new)
+    }
+    counts = segment_sum(valid.to(I32), sq_key, q + 1)[:q]
+    return dataclasses.replace(rings, **fields, tail=rings.tail + counts)
 
 
 def submit_grouped(
@@ -214,6 +254,16 @@ def fetch(
     raise NotImplementedError(
         "frontend='centralized' is not ported (ROADMAP A5)"
     )
+
+
+def deal_sqs(n: int, cfg: EngineConfig, device) -> torch.Tensor:
+    """SQ of request i of a flat application batch, (N,) i32: requests
+    interleave across service units first, then round-robin over each
+    unit's SQs, keeping ascending batch order within an SQ."""
+    u = cfg.num_units if cfg.frontend == "distributed" else 1
+    per_unit = cfg.num_sqs // u
+    i = torch.arange(n, dtype=I32, device=device)
+    return (i % u) * per_unit + torch.div(i, u, rounding_mode="floor") % per_unit
 
 
 def fetch_row_units(cfg: EngineConfig, device) -> torch.Tensor:

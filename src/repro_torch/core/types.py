@@ -85,6 +85,57 @@ class RequestBatch:
 
 
 @dataclasses.dataclass(frozen=True)
+class StorageOps:
+    """A flat batch of storage operations for ``StorageClient.submit``:
+    one slot per operation with its opcode, block address, QoS tenant and
+    virtual submission clock. ``valid`` masks live slots; invalid slots
+    never touch the rings or the device. Build with ``StorageOps.make``."""
+
+    opcode: torch.Tensor    # (N,) i32 — OP_READ / OP_WRITE
+    lba: torch.Tensor       # (N,) i32 — logical block address
+    t_submit: torch.Tensor  # (N,) f32 — virtual submission clock (us)
+    tenant: torch.Tensor    # (N,) i32 — QoS class
+    valid: torch.Tensor     # (N,) bool
+
+    @property
+    def capacity(self) -> int:
+        return self.lba.shape[0]
+
+    @staticmethod
+    def make(
+        lba: torch.Tensor,
+        t_submit: "torch.Tensor | float" = 0.0,
+        opcode: "torch.Tensor | int" = OP_READ,
+        tenant: "torch.Tensor | int" = 0,
+        valid: "torch.Tensor | None" = None,
+    ) -> "StorageOps":
+        """Broadcasting constructor: scalars fan out to ``lba``'s shape."""
+        lba = lba.to(I32)
+        shape, dev = lba.shape, lba.device
+
+        def fan(x, dtype):
+            if isinstance(x, torch.Tensor):
+                return x.to(dev, dtype).expand(shape)
+            # A fill on the device: a Python scalar copied to the card
+            # would wait for the stream.
+            return torch.full(shape, x, dtype=dtype, device=dev)
+
+        if valid is None:
+            valid = torch.ones(shape, dtype=torch.bool, device=dev)
+        return StorageOps(
+            opcode=fan(opcode, I32), lba=lba, t_submit=fan(t_submit, F32),
+            tenant=fan(tenant, I32), valid=valid,
+        )
+
+    def concat(self, other: "StorageOps") -> "StorageOps":
+        """Concatenate two op batches (e.g. faults + write-backs)."""
+        return StorageOps(**{
+            f.name: torch.cat([getattr(self, f.name), getattr(other, f.name)])
+            for f in dataclasses.fields(self)
+        })
+
+
+@dataclasses.dataclass(frozen=True)
 class SSDConfig:
     """Target-device model parameters (NVMeVirt simple timing model).
 

@@ -13,7 +13,9 @@ import torch
 
 from repro_torch.kernels import block_gather as _bg
 from repro_torch.kernels import build
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import die_contention as _dc
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_reap as _fr
 from repro_torch.kernels import ref
 from repro_torch.kernels import seg_scan as _ss
@@ -58,3 +60,19 @@ def die_contention(ready, cost, chip, event, chip_busy):
     if _on_cuda(ready, "die_contention"):
         return _dc.die_contention(ready, cost, chip, event, chip_busy)
     return ref.die_contention_ref(ready, cost, chip, event, chip_busy)
+
+
+def flash_attention(q, k, v, **kw):
+    """``kw``: ``causal``, ``window``, ``logit_softcap``, ``scale``."""
+    if _on_cuda(q, "flash_attention"):
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), **kw)
+    return ref.attention_ref(q, k, v, **kw)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, **kw):
+    """``kw``: ``window``, ``logit_softcap``, ``scale``."""
+    if _on_cuda(q, "decode_attention"):
+        return _da.decode_attention(q.contiguous(), k_cache.contiguous(),
+                                    v_cache.contiguous(), lengths, **kw)
+    return ref.decode_attention_ref(q, k_cache, v_cache, lengths, **kw)

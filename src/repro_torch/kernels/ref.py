@@ -2,9 +2,12 @@
 ``repro/kernels/ref.py``, plus the sequential contracts of
 ``die_contention`` and ``fused_reap``).
 
-Each function computes exactly what its CUDA kernel computes, on any
-device. ``kernels/ops.py`` sends a CPU tensor here; the CUDA kernels are
-held against these functions on the card.
+Each function computes what its CUDA kernel computes, on any device:
+exactly for the engine's four kernels, and with the kernels' float32
+arithmetic (scale applied to q in float32, float32 scores, softmax and
+p @ v, output in q's type) for the two attention kernels, whose sums run
+in another order on the card. ``kernels/ops.py`` sends a CPU tensor here;
+the CUDA kernels are held against these functions on the card.
 """
 from __future__ import annotations
 
@@ -110,3 +113,77 @@ def fused_reap_ref(
         post(done_time, done), post(visible_time, done),
         post(req_id_ring, req_id), counts,
     )
+
+
+def _softmax_pv(logits: torch.Tensor, mask: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+    """``softmax(where(mask, logits, NEG)) @ v`` in float32, where a row
+    with nothing unmasked gives zeros (the kernels' ``l == 0`` rule).
+    Works in place on ``logits``."""
+    logits.masked_fill_(~mask, NEG)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    p = logits.sub_(m).exp_().masked_fill_(~mask, 0.0)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    return torch.matmul(p, v) / torch.where(l > 0, l, 1.0)
+
+
+def attention_ref(
+    q: torch.Tensor,   # (B, Hq, S, D)
+    k: torch.Tensor,   # (B, Hkv, S, D)
+    v: torch.Tensor,   # (B, Hkv, S, D)
+    *,
+    causal: bool = True,
+    window: "int | None" = None,
+    logit_softcap: "float | None" = None,
+    scale: "float | None" = None,
+) -> torch.Tensor:
+    """Multi-head attention with GQA (q head h reads KV head
+    ``h // group``), causal mask, local window and logit softcap."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qf = q.float().reshape(b, hkv, g, s, d) * scale
+    logits = torch.matmul(qf, k.float()[:, :, None].transpose(-1, -2))
+    if logit_softcap is not None:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    rows = torch.arange(s, device=q.device)[:, None]
+    cols = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols > rows - window
+    out = _softmax_pv(logits, mask, v.float()[:, :, None])
+    return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,        # (B, Hq, D): one new token per sequence
+    k_cache: torch.Tensor,  # (B, Hkv, S, D)
+    v_cache: torch.Tensor,  # (B, Hkv, S, D)
+    lengths: torch.Tensor,  # (B,) i32 valid cache lengths
+    *,
+    window: "int | None" = None,
+    logit_softcap: "float | None" = None,
+    scale: "float | None" = None,
+) -> torch.Tensor:
+    """Single-token decode attention against a KV cache: position ``j``
+    of sequence ``b`` is seen iff ``j < lengths[b]`` (and
+    ``j > lengths[b] - 1 - window`` with a window)."""
+    b, hq, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qf = q.float().reshape(b, hkv, g, 1, d) * scale
+    logits = torch.matmul(qf, k_cache.float()[:, :, None].transpose(-1, -2))
+    if logit_softcap is not None:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    pos = torch.arange(s, device=q.device)[None, :]
+    length = lengths.to(torch.int64)[:, None]
+    mask = pos < length
+    if window is not None:
+        mask &= pos > length - 1 - window
+    out = _softmax_pv(logits, mask[:, None, None, None, :],
+                      v_cache.float()[:, :, None])
+    return out.reshape(b, hq, d).to(q.dtype)
