@@ -10,9 +10,12 @@ runs eight phases, printing one JSON line each:
                    versions, kernel build seconds
   kernels          every kernel against its plain PyTorch version on the
                    card at the main paths' shapes and at edge shapes
-                   (exact equality for the engine's four kernels, the
+                   (exact equality for the five gather/engine kernels, the
                    stated tolerances for the two attention kernels);
-                   median CUDA-event times, bounds and library times
+                   median CUDA-event times of a wrapper call, device times
+                   from torch.profiler, bounds and library times; each
+                   attention kernel's bound share and ptxas registers,
+                   shared memory and spills
   main_path_read   the paper's 40-MIOPS drive (``local_1drive``: 32 SQs x
                    1024, fetch 256, 16 units, DSA datapath, closed loop at
                    io_depth 256) for 24 rounds with the block_gather,
@@ -43,6 +46,7 @@ exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -148,6 +152,7 @@ def kernel_cases(dev):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.block_gather import block_gather
+    from repro_torch.kernels.block_gather_tiled import block_gather_tiled
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.die_contention import die_contention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -221,20 +226,37 @@ def kernel_cases(dev):
                                           -50, 200)),
               ("n=0", bg(64, 16, 0, torch.float32))]
 
+    def bgt(tile, *a, **k):
+        args, _ = bg(*a, **k)
+        return args, {"tile": tile}
+
+    # No path calls it (nor its reference); the main case is block_gather's.
+    tiled = [("main (16384,16) f32 n=8192 tile 8",
+              bgt(8, 16384, 16, 8192, torch.float32)),
+             ("tile 1", bgt(1, 1000, 16, 777, torch.float32)),
+             ("tile 4 bf16 width 8", bgt(4, 512, 8, 300, torch.bfloat16)),
+             ("tile 16 f64 width 5 (byte path)",
+              bgt(16, 256, 5, 96, torch.float64)),
+             ("tile 8 int32, indices out of range",
+              bgt(8, 128, 16, 504, torch.int32, -50, 200)),
+             ("n=0", bgt(8, 64, 16, 0, torch.float32))]
+
     bf16 = torch.bfloat16
 
-    def fa(b, hq, hkv, s_len, dtype=bf16, **kw):
+    def fa(b, hq, hkv, s_len, dtype=bf16, d=128, **kw):
         g = torch.Generator(device=dev).manual_seed(s_len + hq)
 
         def x(h):
-            return torch.randn(b, h, s_len, 128, generator=g, device=dev,
+            return torch.randn(b, h, s_len, d, generator=g, device=dev,
                                dtype=dtype)
 
         return (x(hq), x(hkv), x(hkv)), kw
 
     # Main: starcoder2-3b prefill of the serve_long phase. Edge: gemma2's
     # window 64 and softcap 50 at its 32/16 heads, groups 1/2/12, ragged
-    # S, a single row, float32.
+    # S (not a multiple of the 128-row q tile), a single row, 128-row q
+    # tiles straddling the diagonal at D = 64 and 256, float32 (the SIMT
+    # body).
     flash = [("main starcoder2 (8,24,4096,128) bf16", fa(8, 24, 2, 4096)),
              ("gemma2 window 64 softcap 50, group 2, S=1000",
               fa(1, 32, 16, 1000, window=64, logit_softcap=50.0,
@@ -243,20 +265,27 @@ def kernel_cases(dev):
              ("group 12, S=1, f32", fa(1, 24, 2, 1, torch.float32)),
              ("f32 group 12 window 100 S=513",
               fa(1, 24, 2, 513, torch.float32, window=100)),
-             ("not causal, S=300", fa(1, 4, 2, 300, causal=False))]
+             ("not causal, S=300", fa(1, 4, 2, 300, causal=False)),
+             ("group 12, S=1337", fa(1, 24, 2, 1337)),
+             ("D=64 group 2, S=300", fa(2, 4, 2, 300, d=64)),
+             ("D=256 group 2, S=300", fa(2, 4, 2, 300, d=256)),
+             ("D=256 window 100 softcap 30, S=513",
+              fa(1, 8, 2, 513, d=256, window=100, logit_softcap=30.0))]
 
-    def da(b, hq, hkv, s_len, lens, dtype=bf16, **kw):
+    def da(b, hq, hkv, s_len, lens, dtype=bf16, d=128, **kw):
         g = torch.Generator(device=dev).manual_seed(s_len + hq + b)
 
         def x(*shape):
             return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
 
-        return (x(b, hq, 128), x(b, hkv, s_len, 128), x(b, hkv, s_len, 128),
+        return (x(b, hq, d), x(b, hkv, s_len, d), x(b, hkv, s_len, d),
                 t(np.asarray(lens, np.int32))), kw
 
     # Main: serve_long's decode, q (8,24,128) against the 4224-row caches
-    # at lengths 4097-4224. Edge: gemma2's window and softcap, groups
-    # 1/2/12, lengths far below S, ragged S, float32.
+    # at lengths 4097-4224 (22 splits of 192 rows). Edge: lengths at a
+    # split boundary and one past it, a batch where only the first split
+    # is live, gemma2's window and softcap, groups 1/2/12, lengths far
+    # below S, ragged S, float32 and a bf16 head dim of 96 (the SIMT body).
     decode = [("main starcoder2 q (8,24,128) cache 4224 bf16",
                da(8, 24, 2, 4224, np.linspace(4097, 4224, 8).astype(int))),
               ("gemma2 window 64 softcap 50, group 2",
@@ -267,20 +296,33 @@ def kernel_cases(dev):
                da(2, 24, 2, 1000, [1000, 513], torch.float32)),
               ("f32 window 100 softcap 30",
                da(3, 8, 4, 700, [700, 64, 1], torch.float32, window=100,
-                  logit_softcap=30.0))]
+                  logit_softcap=30.0)),
+              ("lengths at split boundaries and one past",
+               da(8, 24, 2, 4224, [192, 193, 384, 385, 3840, 3841, 4032,
+                                   4033])),
+              ("only the first split live",
+               da(8, 24, 2, 4224, [1, 2, 64, 65, 128, 190, 191, 192])),
+              ("D=256 window 100",
+               da(2, 8, 2, 700, [700, 64], d=256, window=100)),
+              ("D=64 group 12", da(2, 24, 2, 1000, [1000, 513], d=64)),
+              ("bf16 D=96 (SIMT body)", da(2, 8, 2, 500, [500, 77], d=96))]
 
     return [
         ("seg_scan", seg_scan, ref.seg_scan_ref, seg),
         ("die_contention", die_contention, ref.die_contention_ref, die),
         ("fused_reap", fused_reap, ref.fused_reap_ref, reap),
         ("block_gather", block_gather, ref.block_gather_ref, gather),
+        ("block_gather_tiled", block_gather_tiled, ref.block_gather_tiled_ref,
+         tiled),
         ("flash_attention", flash_attention, ref.attention_ref, flash),
         ("decode_attention", decode_attention, ref.decode_attention_ref,
          decode),
     ]
 
 
-EXACT = ("seg_scan", "die_contention", "fused_reap", "block_gather")
+EXACT = ("seg_scan", "die_contention", "fused_reap", "block_gather",
+         "block_gather_tiled")
+ATTENTION = ("flash_attention", "decode_attention")
 
 
 def kernel_work(name, args, kw):
@@ -301,7 +343,7 @@ def kernel_work(name, args, kw):
         q, d = args[0].shape
         n = args[4].numel()
         return 2 * q * d * 12 + 2 * 4 * q + n * 13, 0, F32_OPS_PER_S
-    if name == "block_gather":
+    if name in ("block_gather", "block_gather_tiled"):
         flash, idx = args
         rows = torch.unique(idx.clamp(0, flash.shape[0] - 1)).numel()
         row_bytes = flash.shape[1] * flash.element_size()
@@ -330,30 +372,79 @@ def kernel_work(name, args, kw):
     return nbytes, 4 * d * rows * hq, BF16_OPS_PER_S
 
 
-def library_ms(name, args):
-    """One PyTorch call computing the same function, timed as the
-    yardstick (the port never calls it): ``index_select`` for the gather,
-    SDPA for attention (causal with GQA at the prefill shape; at the
-    decode shape over the whole cache, no mask past the length)."""
+def library_fn(name, args):
+    """One PyTorch call computing the same function, the yardstick (the
+    port never calls it): ``index_select`` for the gathers, SDPA for
+    attention (causal with GQA at the prefill shape; at the decode shape
+    over the whole cache, no mask past the length); None where there is
+    none."""
     import torch
     import torch.nn.functional as F
 
-    if name == "block_gather":
-        return median_ms(lambda: torch.index_select(args[0], 0, args[1]))
+    if name in ("block_gather", "block_gather_tiled"):
+        return lambda: torch.index_select(args[0], 0, args[1])
     if name == "flash_attention":
         q, k, v = args
-        return median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
     if name == "decode_attention":
         q, kc, vc, _ = args
         q4 = q[:, :, None, :]
-        return median_ms(lambda: F.scaled_dot_product_attention(
-            q4, kc, vc, enable_gqa=True))
+        return lambda: F.scaled_dot_product_attention(
+            q4, kc, vc, enable_gqa=True)
     return None
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: the summed duration of the
+    kernels (and copies) it launches, from torch.profiler, over ``reps``
+    calls after a warmup. Unlike ``median_ms`` it leaves out the host's
+    launch path, which sets the wall time of a call whose kernels take a
+    few microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in
+             prof.key_averages() if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler saw no device time")
+    return us / reps / 1e3
+
+
+def ptxas_report(log: str):
+    """Registers, static shared memory and spills of every kernel that
+    ``nvcc -Xptxas -v`` compiled, from its build log."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem_bytes"] = int(m[1]) if m else 0
+    return out
 
 
 def phase_kernels(dev, card):
     import torch
+
+    from repro_torch.kernels import build
 
     out = {}
     detail = []
@@ -380,21 +471,31 @@ def phase_kernels(dev, card):
         main, kw = cases[0][1]
         nbytes, ops, peak = kernel_work(name, main, kw)
         b_ms, b_by = bound(nbytes, ops, peak)
+        lib = library_fn(name, main)
         out[name] = {
             "ms": median_ms(lambda: kern(*main, **kw)),
+            "device_ms": device_ms(lambda: kern(*main, **kw)),
             "plain_ms": median_ms(lambda: plain(*main, **kw), reps=10),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms(name, main),
+            "library_ms": median_ms(lib) if lib else None,
+            "library_device_ms": device_ms(lib) if lib else None,
             "max_abs_err": next(d["max_abs_err"] for d in detail
                                 if d["kernel"] == name),
         }
-        del cases, main
+        del cases, main, lib
         torch.cuda.empty_cache()
+    attention = {
+        name: {"bound_share": out[name]["bound_ms"] / out[name]["ms"],
+               "bound_share_device":
+                   out[name]["bound_ms"] / out[name]["device_ms"],
+               "ptxas": ptxas_report(build.BUILD_LOG.get(name, ""))}
+        for name in ATTENTION
+    }
     emit({"phase": "kernels", "card": card,
-          "tolerance": {"engine kernels": "bit-identical",
+          "tolerance": {"gather and engine kernels": "bit-identical",
                         "attention f32": "|diff| <= 1e-4",
                         "attention bf16": "|diff| <= 2^-7 |plain| + 1e-5"},
-          "cases": detail, "timing": out})
+          "cases": detail, "timing": out, "attention": attention})
     return out
 
 
@@ -705,6 +806,7 @@ TPU_KERNELS = {
     "die_contention": "src/repro/kernels/die_contention.py:63",
     "fused_reap": "src/repro/kernels/fused_reap.py:68",
     "block_gather": "src/repro/kernels/block_gather.py:50",
+    "block_gather_tiled": "src/repro/kernels/block_gather.py:111",
     "flash_attention": "src/repro/kernels/flash_attention.py:141",
     "decode_attention": "src/repro/kernels/decode_attention.py:144",
 }

@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict
 
 KERNELS = ("seg_scan", "die_contention", "fused_reap", "block_gather",
-           "flash_attention", "decode_attention")
+           "block_gather_tiled", "flash_attention", "decode_attention")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -2,9 +2,11 @@
 ``repro/kernels/flash_attention.py::flash_attention``).
 
 ``flash_attention`` launches ``csrc/flash_attention.cu`` on CUDA tensors
-(bf16 or f32, head dim 64, 128 or 256, any sequence length). Its plain
-version is ``kernels/ref.py::attention_ref``; ``kernels/ops.py`` chooses
-between them by the tensor's device.
+(head dim 64, 128 or 256, any sequence length): bf16 goes through the
+tensor-core body (TMA loads, ``wgmma``, P·V with p split into bf16 hi and
+lo halves), float32 through the SIMT body. Its plain version is
+``kernels/ref.py::attention_ref``; ``kernels/ops.py`` chooses between them
+by the tensor's device.
 """
 from __future__ import annotations
 
@@ -60,6 +62,8 @@ def flash_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    # The TMA tensor maps need 16-byte aligned bases (a view may be offset).
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     fn = build.bind("flash_attention", [_P] * 4 + [_I] * 8 + [_F] * 2
                     + [_I, _P])
     dev, stream = build.launch_args(q.device)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import block_gather as _bg
+from repro_torch.kernels import block_gather_tiled as _bgt
 from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import die_contention as _dc
@@ -36,6 +37,13 @@ def block_gather(flash: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if _on_cuda(flash, "block_gather"):
         return _bg.block_gather(flash, idx)
     return ref.block_gather_ref(flash, idx)
+
+
+def block_gather_tiled(flash: torch.Tensor, idx: torch.Tensor, *,
+                       tile: int = 8) -> torch.Tensor:
+    if _on_cuda(flash, "block_gather_tiled"):
+        return _bgt.block_gather_tiled(flash, idx, tile=tile)
+    return ref.block_gather_tiled_ref(flash, idx, tile=tile)
 
 
 def seg_scan(values: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,17 @@ def block_gather_ref(flash: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return flash[safe]
 
 
+def block_gather_tiled_ref(flash: torch.Tensor, idx: torch.Tensor, *,
+                           tile: int = 8) -> torch.Tensor:
+    """The gather with ``tile`` descriptors per step: the same rows as
+    ``block_gather_ref`` (the reference's interpret mode applies the same
+    index rule), for ``n % tile == 0`` only, as the reference asserts."""
+    if tile < 1 or idx.shape[0] % tile:
+        raise ValueError(f"descriptor count {idx.shape[0]} is not a "
+                         f"multiple of tile={tile}")
+    return block_gather_ref(flash, idx)
+
+
 def seg_scan_ref(values: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
     """Segmented inclusive prefix max restarting where ``heads[i]``; the
     rows before the first head continue a segment seeded with ``NEG`` (the

@@ -15,6 +15,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.block_gather import block_gather_tiled as pallas_tiled
 from repro_torch.kernels import build, ops, ref
 
 
@@ -140,6 +141,52 @@ def test_block_gather_index_rule_is_jax_gather():
          ref.block_gather_ref(t(flash), t(idx)))
 
 
+@pytest.mark.parametrize("tile", [1, 4, 8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
+def test_block_gather_tiled_plain_matches_pallas(tile, dtype):
+    """The tiled gather against the reference's kernel in interpret mode,
+    with indices in range, negative and past the end."""
+    rng = np.random.default_rng(tile)
+    flash = (rng.standard_normal((48, 16)) * 100).astype(np.float32)
+    idx = rng.integers(-60, 60, 6 * tile).astype(np.int32)
+    if dtype == "bfloat16":
+        want = pallas_tiled(jnp.asarray(flash).astype(jnp.bfloat16),
+                            jnp.asarray(idx), tile=tile, interpret=True)
+        got = ref.block_gather_tiled_ref(t(flash).bfloat16(), t(idx),
+                                         tile=tile)
+        same(np.asarray(want.astype(jnp.float32)), got.float())
+        return
+    flash = flash.astype(dtype)
+    want = pallas_tiled(jnp.asarray(flash), jnp.asarray(idx), tile=tile,
+                        interpret=True)
+    same(want, ref.block_gather_tiled_ref(t(flash), t(idx), tile=tile))
+
+
+def test_block_gather_tiled_index_rule_is_the_references():
+    """Pinned against the reference's interpret mode: a negative index
+    counts from the end, then indices clamp into range (as block_gather)."""
+    flash = np.arange(40, dtype=np.float32).reshape(10, 4)
+    idx = np.array([-30, -3, -1, 0, 9, 10, 99, 5], np.int32)
+    want = pallas_tiled(jnp.asarray(flash), jnp.asarray(idx), tile=4,
+                        interpret=True)
+    np.testing.assert_array_equal(np.asarray(want)[:, 0],
+                                  [0, 28, 36, 0, 36, 36, 36, 20])
+    same(want, ref.block_gather_tiled_ref(t(flash), t(idx), tile=4))
+
+
+def test_block_gather_tiled_refuses_ragged_descriptor_counts():
+    """The reference asserts ``n % tile == 0``; the port raises."""
+    flash = np.ones((8, 4), np.float32)
+    idx = np.zeros(6, np.int32)
+    with pytest.raises(AssertionError):
+        pallas_tiled(jnp.asarray(flash), jnp.asarray(idx), tile=4,
+                     interpret=True)
+    with pytest.raises(ValueError, match="not a multiple of tile=4"):
+        ops.block_gather_tiled(t(flash), t(idx), tile=4)
+    with pytest.raises(ValueError, match="not a multiple of tile=0"):
+        ops.block_gather_tiled(t(flash), t(idx), tile=0)
+
+
 def test_ops_dispatch_cpu_tensors_to_plain_versions():
     build.reset_launches()
     v, h = seg_case(50, 3)
@@ -155,6 +202,7 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
     flash = np.ones((8, 4), np.float32)
     idx = np.array([1, 2], np.int32)
     same(flash[idx], ops.block_gather(t(flash), t(idx)))
+    same(flash[idx], ops.block_gather_tiled(t(flash), t(idx), tile=2))
     assert all(c == 0 for c in ops.LAUNCHES.values())
 
 
@@ -168,9 +216,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel wrappers never take a CPU tensor (no quiet fallback)."""
     from repro_torch.kernels.seg_scan import seg_scan
 
+    from repro_torch.kernels.block_gather_tiled import block_gather_tiled
+
     v, h = seg_case(8, 1)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         seg_scan(t(v), t(h))
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        block_gather_tiled(t(np.ones((4, 4), np.float32)),
+                           t(np.zeros(4, np.int32)), tile=2)
 
 
 @pytest.fixture
@@ -204,3 +257,8 @@ def test_cuda_kernels_match_plain_versions(card):
             .astype(np.int32)).to(card)
     same(ref.block_gather_ref(flash, idx).cpu().numpy(),
          block_gather(flash, idx))
+    from repro_torch.kernels.block_gather_tiled import block_gather_tiled
+
+    for tile in (1, 8, 16):
+        same(ref.block_gather_tiled_ref(flash, idx, tile=tile).cpu().numpy(),
+             block_gather_tiled(flash, idx, tile=tile))
