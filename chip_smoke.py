@@ -13,9 +13,12 @@ runs eight phases, printing one JSON line each:
                    (exact equality for the five gather/engine kernels, the
                    stated tolerances for the two attention kernels);
                    median CUDA-event times of a wrapper call, device times
-                   from torch.profiler, bounds and library times; each
-                   attention kernel's bound share and ptxas registers,
-                   shared memory and spills
+                   and device events per call from torch.profiler, bounds
+                   and library times; die_contention's one-die time and
+                   its time per event row there; each attention kernel's
+                   bound share and ptxas registers, shared memory and
+                   spills. fused_reap must leave its input rings as they
+                   were
   main_path_read   the paper's 40-MIOPS drive (``local_1drive``: 32 SQs x
                    1024, fetch 256, 16 units, DSA datapath, closed loop at
                    io_depth 256) for 24 rounds with the block_gather,
@@ -174,13 +177,18 @@ def kernel_cases(dev):
            ("all heads", ss(4096, 1.1)), ("no heads", ss(4133, 0.0)),
            ("n=300007 multi-chunk carry", ss(300007, 1e-4))]
 
-    def dc(n, k, p_event, one_die=False):
-        ready = rng.integers(0, 5000, n).astype(np.float32)
-        cost = rng.choice([40.0, 200.0, 240.0], n).astype(np.float32)
+    def dc(n, k, p_event, one_die=False, fractional=False):
+        if fractional:
+            ready = rng.uniform(0, 5000, n).astype(np.float32)
+            cost = rng.uniform(0.1, 300, n).astype(np.float32)
+        else:
+            ready = rng.integers(0, 5000, n).astype(np.float32)
+            cost = rng.choice([40.0, 200.0, 240.0], n).astype(np.float32)
         chip = (np.zeros(n) if one_die else rng.integers(0, k, n)).astype(
             np.int32)
         event = rng.random(n) < p_event
-        cur = rng.integers(0, 3000, k).astype(np.float32)
+        cur = (rng.uniform(0, 3000, k) if fractional
+               else rng.integers(0, 3000, k)).astype(np.float32)
         return (t(ready), t(cost), t(chip), t(event), t(cur)), {}
 
     die = [("main N=8192 K=32", dc(8192, 32, 0.3)),
@@ -307,6 +315,68 @@ def kernel_cases(dev):
               ("D=64 group 12", da(2, 24, 2, 1000, [1000, 513], d=64)),
               ("bf16 D=96 (SIMT body)", da(2, 8, 2, 500, [500, 77], d=96))]
 
+    # Cases added with the redesigned die_contention and fused_reap; their
+    # data is drawn after every earlier case's, which stays as it was.
+    def unaligned(case, rows):
+        """The case with the row inputs at positions ``rows`` replaced by
+        contiguous views that start one element past an aligned address."""
+        args, kw = case
+        return tuple(a[1:] if i in rows else a
+                     for i, a in enumerate(args)), kw
+
+    def dc_special(n, k, p_event):
+        """Readies of +inf and costs of -0 on 1% of the rows each."""
+        (ready, cost, *rest), kw = dc(n, k, p_event)
+        ready[t(rng.random(n) < 0.01)] = float("inf")
+        cost[t(rng.random(n) < 0.01)] = -0.0
+        return (ready, cost, *rest), kw
+
+    def dc_zeros(n, k):
+        """Readies and costs of +0 and -0 (costs mostly -0, which keeps the
+        max's sign in the output), cursors of -0: of two zeros the max
+        takes +0."""
+        zeros = np.array([0.0, -0.0], np.float32)
+        return (t(rng.choice(zeros, n)), t(rng.choice(zeros, n, p=[0.1, 0.9])),
+                t(rng.integers(0, k, n).astype(np.int32)),
+                t(rng.random(n) < 0.7), t(np.full(k, -0.0, np.float32))), {}
+
+    def dc_nan(n, k):
+        """NaN readies (two payloads) on 0.4% of the rows and NaN cursors
+        on every seventh die: a NaN propagates."""
+        (ready, cost, chip, event, cur), kw = dc(n, k, 0.5)
+        nan = t(np.array([0x7FC00001, 0xFFA00042], np.uint32).view(np.float32))
+        ready[t(rng.random(n) < 0.002)] = nan[0]
+        ready[t(rng.random(n) < 0.002)] = nan[1]
+        cur[::7] = nan[1]
+        return (ready, cost, chip, event, cur), kw
+
+    die += [("N=300007 K=32 (many tiles)", dc(300007, 32, 0.3)),
+            ("N=8192 K=512 (16 die groups)", dc(8192, 512, 0.3)),
+            ("K=1000 N=20000", dc(20000, 1000, 0.5)),
+            ("one die N=65536 p=0.5 (long chain)",
+             dc(65536, 32, 0.5, one_die=True)),
+            ("fractional ready and cost", dc(8192, 32, 0.3, fractional=True)),
+            ("+inf readies, -0 costs", dc_special(8192, 32, 0.3)),
+            ("signed zeros", dc_zeros(8192, 32)),
+            ("NaN readies and cursors", dc_nan(8192, 32)),
+            ("unaligned rows", unaligned(dc(8193, 32, 0.3), range(4))),
+            ("N=0", dc(0, 32, 0.3))]
+    wrap6 = (t(np.zeros((1, 6), np.float32)), t(np.zeros((1, 6), np.float32)),
+             t(np.full((1, 6), -1, np.int32)),
+             t(np.array([2**31 - 7], np.int32)), t(np.zeros(10, np.int32)),
+             t(np.arange(10, dtype=np.float32)),
+             t(np.arange(10, dtype=np.int32)), t(np.ones(10, bool)))
+    # The tail wraps past 2^31 inside a CQ's last D posts, D not dividing
+    # 2^32: a slot's last writer is then not among the last D ranks.
+    reap += [("D=6, tail 2^31-7 wraps at the 8th of 10 posts", (wrap6, {})),
+             ("Q=4 D=1000 N=8192, tails wrap in the last D posts",
+              fr(4, 1000, 8192, 0.9, 2**31 - 1500, 2**31 - 1000)),
+             ("Q=2 D=60000 N=150000, slot table in global scratch, tails "
+              "wrap", fr(2, 60000, 150000, 0.9, 2**31 - 60000, 2**31 - 10000)),
+             ("unaligned rows", unaligned(fr(32, 1024, 8193, 0.9),
+                                          range(4, 8))),
+             ("N=0", fr(32, 1024, 0, 0.9))]
+
     return [
         ("seg_scan", seg_scan, ref.seg_scan_ref, seg),
         ("die_contention", die_contention, ref.die_contention_ref, die),
@@ -395,12 +465,12 @@ def library_fn(name, args):
     return None
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn``: the summed duration of the
-    kernels (and copies) it launches, from torch.profiler, over ``reps``
-    calls after a warmup. Unlike ``median_ms`` it leaves out the host's
-    launch path, which sets the wall time of a call whose kernels take a
-    few microseconds."""
+def device_ms(fn, reps: int = 20):
+    """(device ms, device events) of one call of ``fn``: the summed
+    duration and the number of the kernels (and copies) it launches, from
+    one torch.profiler window over ``reps`` calls after a warmup. Unlike
+    ``median_ms`` it leaves out the host's launch path, which sets the wall
+    time of a call whose kernels take a few microseconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -412,10 +482,11 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in
-             prof.key_averages() if e.device_type == DeviceType.CUDA)
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total", 0) for e in dev_events)
     check(us > 0, "the profiler saw no device time")
-    return us / reps / 1e3
+    return us / reps / 1e3, sum(e.count for e in dev_events) / reps
 
 
 def ptxas_report(log: str):
@@ -450,9 +521,12 @@ def phase_kernels(dev, card):
     detail = []
     for name, kern, plain, cases in kernel_cases(dev):
         for label, (args, kw) in cases:
+            before = [a.clone() for a in args] if name == "fused_reap" else []
             got = kern(*args, **kw)
             want = plain(*args, **kw)
             torch.cuda.synchronize()
+            check(all(bitwise_equal(a, b) for a, b in zip(before, args)),
+                  f"{name} [{label}] wrote to its inputs")
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             if name in EXACT:
@@ -472,16 +546,27 @@ def phase_kernels(dev, card):
         nbytes, ops, peak = kernel_work(name, main, kw)
         b_ms, b_by = bound(nbytes, ops, peak)
         lib = library_fn(name, main)
+        dev_ms, events = device_ms(lambda: kern(*main, **kw))
         out[name] = {
             "ms": median_ms(lambda: kern(*main, **kw)),
-            "device_ms": device_ms(lambda: kern(*main, **kw)),
+            "device_ms": dev_ms, "device_events_per_call": events,
             "plain_ms": median_ms(lambda: plain(*main, **kw), reps=10),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": median_ms(lib) if lib else None,
-            "library_device_ms": device_ms(lib) if lib else None,
+            "library_device_ms": device_ms(lib)[0] if lib else None,
             "max_abs_err": next(d["max_abs_err"] for d in detail
                                 if d["kernel"] == name),
         }
+        if name == "die_contention":
+            # The one-die case is one chain: its device time over its
+            # event rows is the measured time of a step of the chain.
+            one_args, _ = dict(cases)["one die"]
+            one_ms = device_ms(lambda: kern(*one_args))[0]
+            steps = int(one_args[3].sum())
+            out[name].update({"one_die_device_ms": one_ms,
+                              "one_die_events": steps,
+                              "one_die_device_ns_per_event":
+                                  one_ms * 1e6 / steps})
         del cases, main, lib
         torch.cuda.empty_cache()
     attention = {

@@ -6,18 +6,23 @@ that name: ``benchmarks/common.py::swarmio_cfg()`` (32 SQs x 1024, fetch
 width 256, 16 service units, aggregated timing, coalesced DSA fetch,
 DSA datapath) on ``FUTURE_40M`` (40e6 IOPS, 512 instances, 16384 blocks).
 
-    python -m repro_torch.bench [--rounds 24] [--trace PATH]
+    python -m repro_torch.bench [--rounds 24] [--mixed] [--trace PATH]
     python -m repro_torch.bench --serve [--steps 16] [--trace PATH]
 
 The first runs the drive read-only with the kernel flags on, once to warm
-up and once under ``torch.profiler``. ``--serve`` profiles the serving
-decode step instead: starcoder2-3b at full width with the attention
-kernels on, batch 8 after a 4096-token prompt (``chip_smoke.py``'s
-``serve_long``), ``--steps`` decode steps after one warm-up step. Each
-prints one JSON line: wall and device kernel time per round (or step),
-the device's idle share, device events (kernels and copies) and memcpy
-calls per round, the host-device synchronisations in the window, and the
-ops with the most device time. It needs a card.
+up and once under ``torch.profiler``; ``--mixed`` runs it under the 70/30
+read/write mix instead (``MixedReadWrite(read_frac=0.7)``,
+``chip_smoke.py``'s ``main_path_mixed``) with ``use_pallas_flash`` on as
+well, so that the rounds also price writes on the dies through
+``die_contention``. ``--serve`` profiles the serving decode step instead:
+starcoder2-3b at full width with the attention kernels on, batch 8 after
+a 4096-token prompt (``chip_smoke.py``'s ``serve_long``), ``--steps``
+decode steps after one warm-up step. Each prints one JSON line: wall and
+device kernel time per round (or step), the device's idle share, device
+events (kernels and copies) and memcpy calls per round, the host-device
+synchronisations in the window, the ops with the most device time, and
+the device time per round of each of the port's engine kernels. It
+needs a card.
 """
 from __future__ import annotations
 
@@ -50,6 +55,14 @@ def local_1drive(**kw):
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaEventSynchronize")
 
+# Device-side names of the engine kernels' CUDA functions, by kernel.
+_ENGINE_KERNELS = {
+    "seg_scan": ("seg_scan_tile", "seg_scan_carry", "seg_scan_fix"),
+    "die_contention": ("die_contention_kernel",),
+    "fused_reap": ("fused_reap_kernel",),
+    "block_gather": ("gather_vec16", "gather_bytes"),
+}
+
 
 def _profiled(fn, n: int, trace: "str | None") -> dict:
     """Run ``fn`` once under ``torch.profiler`` (after the caller's
@@ -77,6 +90,11 @@ def _profiled(fn, n: int, trace: "str | None") -> dict:
         prof.export_chrome_trace(trace)
     busy_us = float(sum(kernels))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    engine = {
+        k: sum(v for name, v in by_name.items()
+               if any(f in name for f in fns)) / 1e3 / n
+        for k, fns in _ENGINE_KERNELS.items()
+    }
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -93,21 +111,27 @@ def _profiled(fn, n: int, trace: "str | None") -> dict:
         "top_device_ms_per_round": {
             k[:80]: v / 1e3 / n for k, v in top
         },
+        "engine_kernel_device_ms_per_round": engine,
     }
 
 
-def profile_rounds(rounds: int, trace: "str | None") -> dict:
+def profile_rounds(rounds: int, trace: "str | None",
+                   mixed: bool = False) -> dict:
     from repro_torch.core import engine
     from repro_torch.core.types import PlatformModel, WorkloadConfig
+    from repro_torch.workloads import MixedReadWrite
 
     dev = torch.device("cuda", 0)
     cfg, ssd = local_1drive(emulate_data=True, use_pallas=True,
-                            use_pallas_segscan=True, use_pallas_reap=True)
-    wl = WorkloadConfig(io_depth=256)
+                            use_pallas_segscan=True, use_pallas_reap=True,
+                            use_pallas_flash=mixed)
+    wl = (MixedReadWrite(read_frac=0.7, io_depth=256) if mixed
+          else WorkloadConfig(io_depth=256))
     state = engine.init_state(cfg, ssd, wl, device=dev)
     runner = engine.make_runner(cfg, ssd, wl, PlatformModel(), rounds, dev)
     runner(state)
-    return _profiled(lambda: runner(state), rounds, trace)
+    return {"path": "mixed 70/30 rounds" if mixed else "read rounds",
+            **_profiled(lambda: runner(state), rounds, trace)}
 
 
 def profile_decode(steps: int, trace: "str | None", batch: int = 8,
@@ -140,6 +164,8 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=24)
     ap.add_argument("--serve", action="store_true",
                     help="profile the serving decode step instead")
+    ap.add_argument("--mixed", action="store_true",
+                    help="profile rounds of the 70/30 read/write mix")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace here")
@@ -147,7 +173,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.bench needs a CUDA device")
     res = (profile_decode(args.steps, args.trace) if args.serve
-           else profile_rounds(args.rounds, args.trace))
+           else profile_rounds(args.rounds, args.trace, args.mixed))
     print(json.dumps(res), flush=True)
 
 

@@ -1,10 +1,11 @@
 """Per-die flash contention on the card (port of
 ``repro/kernels/die_contention.py``).
 
-``die_contention`` launches ``csrc/die_contention.cu`` (one warp per die,
-rows folded in order) on CUDA tensors. Its plain version is
-``kernels/ref.py::die_contention_ref``; ``kernels/ops.py`` chooses between
-them by the tensor's device.
+``die_contention`` launches ``csrc/die_contention.cu`` once (rows staged
+in shared memory tile by tile, each die's event rows found through a
+bitmap, one warp per die folding them in row order) on CUDA tensors. Its
+plain version is ``kernels/ref.py::die_contention_ref``; ``kernels/ops.py``
+chooses between them by the tensor's device.
 """
 from __future__ import annotations
 

@@ -1,20 +1,29 @@
 """Fused neutral CQ post on the card (port of
 ``repro/kernels/fused_reap.py``).
 
-``fused_reap`` clones the three rings and launches ``csrc/fused_reap.cu``
-(one block per CQ, ballot ranks) on the clones. Its plain version is
-``kernels/ref.py::fused_reap_ref``; ``kernels/ops.py`` chooses between
-them by the tensor's device.
+``fused_reap`` launches ``csrc/fused_reap.cu`` once (one block per CQ: a
+block-wide rank scan, each slot's last writer by ``atomicMax`` of the row
+index, then a sweep that writes fresh rings). The caller's rings are only
+read. Its plain version is ``kernels/ref.py::fused_reap_ref``;
+``kernels/ops.py`` chooses between them by the tensor's device.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_slots() -> int:
+    """The depth up to which the kernel keeps its slot table in shared
+    memory (a compile-time constant of the library)."""
+    return build.library("fused_reap").fused_reap_smem_slots()
 
 
 def fused_reap(
@@ -46,15 +55,22 @@ def fused_reap(
         raise ValueError(f"tail must be ({q},) and the depth >= 1")
     if not (done.shape[0] == req_id.shape[0] == valid.shape[0] == n):
         raise ValueError("key, done, req_id and valid must have equal length")
-    dt = done_time.clone()
-    vt = visible_time.clone()
-    rid = req_id_ring.clone()
+    dt = torch.empty_like(done_time)
+    vt = torch.empty_like(visible_time)
+    rid = torch.empty_like(req_id_ring)
     counts = torch.empty((q,), dtype=torch.int32, device=dev)
-    fn = build.bind("fused_reap", [_P] * 9 + [ctypes.c_int] * 4 + [_P])
+    # A depth beyond the kernel's shared-memory slot table puts the table
+    # in a (Q, D) global scratch.
+    scratch = (torch.empty((q, d), dtype=torch.int32, device=dev)
+               if d > _smem_slots() else None)
+    fn = build.bind("fused_reap", [_P] * 13 + [ctypes.c_int] * 4 + [_P])
     dv, stream = build.launch_args(dev)
-    rc = fn(build.ptr(dt), build.ptr(vt), build.ptr(rid), build.ptr(tail),
-            build.ptr(key), build.ptr(done), build.ptr(req_id),
-            build.ptr(valid), build.ptr(counts), q, d, n, dv, stream)
+    rc = fn(build.ptr(done_time), build.ptr(visible_time),
+            build.ptr(req_id_ring), build.ptr(tail), build.ptr(key),
+            build.ptr(done), build.ptr(req_id), build.ptr(valid),
+            build.ptr(dt), build.ptr(vt), build.ptr(rid), build.ptr(counts),
+            build.ptr(scratch) if scratch is not None else None,
+            q, d, n, dv, stream)
     build.check("fused_reap", rc)
     build.LAUNCHES["fused_reap"] += 1
     return dt, vt, rid, counts

@@ -21,6 +21,15 @@ from repro_torch.core.types import F32, I32
 NEG = -3e38
 
 
+def jax_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum``'s rule on every device: a NaN propagates, and of two
+    zeros +0 is the larger. (``torch.maximum`` keeps the first operand of
+    such a tie on the CPU.) A tie's bits are the AND of the operands':
+    the value itself, and -0 only where both are -0."""
+    tie = (a.view(I32) & b.view(I32)).view(F32)
+    return torch.where(a == b, tie, torch.maximum(a, b))
+
+
 def block_gather_ref(flash: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather rows: ``out[i] = flash[idx[i]]`` with JAX's index rule — a
     negative index counts from the end, then indices clamp into range."""
@@ -62,13 +71,16 @@ def die_contention_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sequential per-die fold, dies in parallel: step r advances
     every die by its r-th event row (row order within a die), each step
-    the same ``max(cur, ready) + cost`` the sequential loop performs."""
+    the same ``max(cur, ready) + cost`` the sequential loop performs, with
+    ``jnp.maximum``'s max (``jax_max``)."""
     n = ready.shape[0]
     k = chip_busy.shape[0]
     dev = ready.device
+    if n == 0:
+        return torch.zeros((0,), dtype=F32, device=dev), chip_busy.clone()
     key = torch.where(event, chip, k)
     _, rank, counts, _ = segops.counting_positions(key, k + 1)
-    steps = int(counts[:k].max().item()) if n and k else 0
+    steps = int(counts[:k].max().item()) if k else 0
     # table[c, r] = row of die c's r-th event (n where there is none)
     table = torch.full((k + 1, max(steps, 1)), n, dtype=torch.int64,
                        device=dev)
@@ -83,7 +95,7 @@ def die_contention_ref(
     for r in range(steps):
         rows_r = table[:, r]
         has = rows_r < n
-        b = torch.maximum(cur, ready_p[rows_r]) + cost_p[rows_r]
+        b = jax_max(cur, ready_p[rows_r]) + cost_p[rows_r]
         cur = torch.where(has, b, cur)
         busy[rows_r] = torch.where(has, b, 0.0)
     return busy[:n], cur
@@ -101,24 +113,34 @@ def fused_reap_ref(
 ):
     """The one-pass neutral CQ post: every valid row of CQ
     ``c = clip(key, 0, Q-1)`` writes ``(done, done, req_id)`` at
-    ``(tail[c] + rank) % D`` where ``rank`` counts the earlier valid rows
-    of its CQ; where several rows land on one slot the last one wins.
-    Returns the new rings and the (Q,) per-CQ counts."""
+    ``(tail[c] + rank) % D`` (int32 wrapping add, floor modulo) where
+    ``rank`` counts the earlier valid rows of its CQ; where several rows
+    land on one slot the last one wins. Returns the new rings and the
+    (Q,) per-CQ counts."""
     q, d = done_time.shape
+    n = key.shape[0]
+    if n == 0:
+        return (done_time.clone(), visible_time.clone(), req_id_ring.clone(),
+                torch.zeros((q,), dtype=I32, device=key.device))
     safe = key.clamp(0, q - 1)
     k2 = torch.where(valid, safe, q)
     _, rank, counts, _ = segops.counting_positions(k2, q + 1)
     counts = counts[:q]
     pos = torch.remainder(tail[safe.long()] + rank, d)
-    # Only the last row posting to a slot writes (no later row of the
-    # same CQ has rank + D): scatters of the winners have no duplicates.
-    win = valid & (rank.long() + d >= counts[safe.long()].long())
-    flat = torch.where(win, safe.long() * d + pos.long(), q * d)
+    # A slot's writer is the valid row with the largest index among the
+    # rows of its CQ that land on it (ranks grow with the row index). Not
+    # "the last D ranks": where tail + rank wraps past 2^31 and D does not
+    # divide 2^32, the slots of consecutive ranks jump, and some slot's
+    # last writer is an earlier rank.
+    flat = torch.where(valid, safe.long() * d + pos.long(), q * d)
+    rows = torch.arange(n, dtype=torch.int64, device=key.device)
+    win = torch.full((q * d + 1,), -1, dtype=torch.int64, device=key.device)
+    win = win.scatter_reduce(0, flat, rows, "amax")[: q * d]
+    src = torch.where(win >= 0, win, n)
 
     def post(ring, vals):
-        out = torch.cat([ring.reshape(-1), ring.new_zeros((1,))])
-        out[flat] = vals
-        return out[: q * d].reshape(q, d)
+        vals = torch.cat([vals, vals.new_zeros((1,))])
+        return torch.where(win >= 0, vals[src], ring.reshape(-1)).reshape(q, d)
 
     return (
         post(done_time, done), post(visible_time, done),

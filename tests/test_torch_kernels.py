@@ -70,6 +70,27 @@ def test_die_contention_plain_matches_pallas(n, k, p):
     same(rc, pc)
 
 
+def signed_zero_case(n, k, seed):
+    """Readies and costs of +0 and -0, cursors of -0. Costs mostly -0 keep
+    -0 cursors alive, so that a -0 cursor meets a +0 ready again and
+    again."""
+    rng = np.random.default_rng(seed)
+    zeros = np.array([0.0, -0.0], np.float32)
+    return (rng.choice(zeros, n), rng.choice(zeros, n, p=[0.1, 0.9]),
+            rng.integers(0, k, n).astype(np.int32), rng.random(n) < 0.7,
+            np.full(k, -0.0, np.float32))
+
+
+def test_die_contention_plain_matches_pallas_on_signed_zeros():
+    """Of two zeros the reference's max takes +0, and a cost of -0 keeps
+    the max's sign in the output."""
+    args = signed_zero_case(256, 4, 11)
+    rb, rc = jops.die_contention(*map(jnp.asarray, args))
+    pb, pc = ref.die_contention_ref(*map(t, args))
+    same(rb, pb)
+    same(rc, pc)
+
+
 def test_die_contention_plain_is_the_sequential_fold_on_fractions():
     """Fractional times: the plain version is still the row-order fold,
     one rounded max-then-add per event row."""
@@ -94,10 +115,10 @@ def test_die_contention_plain_is_the_sequential_fold_on_fractions():
     same(want_cur, new_cur)
 
 
-def reap_case(q, d, n, seed, tail_lo=0, tail_hi=50):
+def reap_case(q, d, n, seed, tail_lo=0, tail_hi=50, p_valid=0.7):
     rng = np.random.default_rng(seed)
     key = rng.integers(0, q, n).astype(np.int32)
-    valid = rng.random(n) < 0.7
+    valid = rng.random(n) < p_valid
     key = np.where(valid, key, q).astype(np.int32)
     return (rng.uniform(0, 9, (q, d)).astype(np.float32),
             rng.uniform(0, 9, (q, d)).astype(np.float32),
@@ -107,17 +128,60 @@ def reap_case(q, d, n, seed, tail_lo=0, tail_hi=50):
             rng.integers(0, 1 << 20, n).astype(np.int32), valid)
 
 
-@pytest.mark.parametrize("q,d,n,lo,hi", [
-    (1, 4, 30, 0, 3), (4, 8, 64, 0, 50), (8, 16, 100, 2**31 - 60, 2**31 - 1),
-    (3, 2, 40, 0, 5),
+@pytest.mark.parametrize("q,d,n,lo,hi,p_valid", [
+    pytest.param(1, 4, 30, 0, 3, 0.7, id="1-4-30-0-3"),
+    pytest.param(4, 8, 64, 0, 50, 0.7, id="4-8-64-0-50"),
+    pytest.param(8, 16, 100, 2**31 - 60, 2**31 - 1, 0.7,
+                 id="8-16-100-2147483588-2147483647"),
+    pytest.param(3, 2, 40, 0, 5, 0.7, id="3-2-40-0-5"),
+    # The int32 tail wraps inside a CQ's last D posts and D does not
+    # divide 2^32: the slots of consecutive ranks jump at the wrap.
+    pytest.param(1, 6, 10, 2**31 - 7, 2**31 - 6, 1.0, id="wrap-1-6-10"),
+    pytest.param(3, 1000, 5000, 2**31 - 1100, 2**31 - 900, 0.7,
+                 id="wrap-3-1000-5000"),
 ])
-def test_fused_reap_plain_matches_pallas(q, d, n, lo, hi):
-    """Including tails that wrap the ring, int32 tail overflow, and more
-    posts than slots (the last post to a slot wins)."""
-    args = reap_case(q, d, n, q * d + n, lo, hi)
+def test_fused_reap_plain_matches_pallas(q, d, n, lo, hi, p_valid):
+    """Including tails that wrap the ring, int32 tail overflow, more
+    posts than slots (the last post to a slot wins), and a tail that
+    wraps past 2^31 inside the last D posts."""
+    args = reap_case(q, d, n, q * d + n, lo, hi, p_valid)
     for a, b in zip(jops.fused_reap(*map(jnp.asarray, args)),
                     ref.fused_reap_ref(*map(t, args))):
         same(a, b)
+
+
+def wrap_reproduction():
+    """One CQ of depth 6, ten valid posts from tail 2^31 - 7, req_id =
+    row, ring pre-filled with -1: the tail wraps at the eighth post."""
+    n = 10
+    return (np.zeros((1, 6), np.float32), np.zeros((1, 6), np.float32),
+            np.full((1, 6), -1, np.int32), np.array([2**31 - 7], np.int32),
+            np.zeros(n, np.int32), np.arange(n, dtype=np.float32),
+            np.arange(n, dtype=np.int32), np.ones(n, bool))
+
+
+def test_fused_reap_wrapped_tail_last_writer():
+    """Posts 0..6 fill slots 1, 2, 3, 4, 5, 0, 1 of the depth-6 ring; at
+    the wrap (tail + 7 = -2^31, floor modulo 6 = 4) posts 7, 8, 9 land on
+    slots 4, 5, 0. So slots 2 and 3 keep posts 1 and 2, which are not
+    among the last six ranks."""
+    args = wrap_reproduction()
+    want = np.array([[9, 6, 1, 2, 7, 8]], np.int32)
+    np.testing.assert_array_equal(
+        np.asarray(jops.fused_reap(*map(jnp.asarray, args))[2]), want)
+    dt, vt, rid, counts = ref.fused_reap_ref(*map(t, args))
+    np.testing.assert_array_equal(rid.numpy(), want)
+    np.testing.assert_array_equal(dt.numpy(), want.astype(np.float32))
+    np.testing.assert_array_equal(counts.numpy(), [10])
+
+
+def test_fused_reap_plain_leaves_the_rings_untouched():
+    """The post is functional: the caller's rings are not written."""
+    args = [t(x) for x in reap_case(4, 8, 64, 3, 0, 50)]
+    before = [x.clone() for x in args]
+    ref.fused_reap_ref(*args)
+    for a, b in zip(before, args):
+        same(a.numpy(), b)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int32, np.float64])
@@ -249,9 +313,48 @@ def test_cuda_kernels_match_plain_versions(card):
     args = on(*die_case(8192, 32, 1, 0.3))
     for a, b in zip(ref.die_contention_ref(*args), die_contention(*args)):
         same(a.cpu().numpy(), b)
+    # Many tiles, several die groups, K = 1000, a long chain on one die,
+    # fractional times (re-association would show), no rows.
+    rng = np.random.default_rng(14)
+    one_die = list(die_case(65536, 32, 3, 0.5))
+    one_die[2] = np.zeros(65536, np.int32)
+    frac = (rng.uniform(0, 5000, 8192).astype(np.float32),
+            rng.uniform(0.1, 300, 8192).astype(np.float32),
+            rng.integers(0, 32, 8192).astype(np.int32),
+            rng.random(8192) < 0.3, rng.uniform(0, 3000, 32).astype(np.float32))
+    # +inf readies and -0 costs; signed zeros (of two zeros the max takes
+    # +0); NaN readies and cursors with payloads (a NaN propagates).
+    special = die_case(8192, 32, 7, 0.3)
+    special[0][rng.random(8192) < 0.01] = np.inf
+    special[1][rng.random(8192) < 0.01] = -0.0
+    nans = die_case(8192, 32, 12, 0.5)
+    nans[0][rng.random(8192) < 0.002] = np.uint32(0x7FC00001).view(np.float32)
+    nans[4][::7] = np.uint32(0xFFA00042).view(np.float32)
+    for case in (die_case(300007, 32, 4, 0.3), die_case(8192, 512, 5, 0.3),
+                 die_case(20000, 1000, 6, 0.5), one_die, frac, special,
+                 signed_zero_case(8192, 32, 13), nans,
+                 die_case(0, 32, 8, 0.3)):
+        args = on(*case)
+        for a, b in zip(ref.die_contention_ref(*args), die_contention(*args)):
+            same(a.cpu().numpy(), b)
     args = on(*reap_case(32, 1024, 8192, 2, 900, 1024))
     for a, b in zip(ref.fused_reap_ref(*args), fused_reap(*args)):
         same(a.cpu().numpy(), b)
+    # Tails that wrap past 2^31 inside the last D posts (D = 6 and 1000),
+    # a depth past the shared-memory slot table, no rows; the caller's
+    # rings stay as they were.
+    for case in (wrap_reproduction(),
+                 reap_case(4, 1000, 8192, 9, 2**31 - 1500, 2**31 - 1000, 0.9),
+                 reap_case(2, 60000, 150000, 10, 2**31 - 60000,
+                           2**31 - 10000, 0.9),
+                 reap_case(32, 1024, 0, 11)):
+        args = on(*case)
+        before = [x.clone() for x in args]
+        got = fused_reap(*args)
+        for a, b in zip(ref.fused_reap_ref(*args), got):
+            same(a.cpu().numpy(), b)
+        for a, b in zip(before, args):
+            same(a.cpu().numpy(), b)
     flash = torch.randn(16384, 16, device=card)
     idx = t(np.random.default_rng(0).integers(0, 16384, 8192)
             .astype(np.int32)).to(card)
