@@ -13,8 +13,9 @@ runs eight phases, printing one JSON line each:
                    (exact equality for the five gather/engine kernels, the
                    stated tolerances for the two attention kernels);
                    median CUDA-event times of a wrapper call, device times
-                   and device events per call from torch.profiler, bounds
-                   and library times; die_contention's one-die time and
+                   and device events per call from torch.profiler, host
+                   microseconds a call (no synchronisation), bounds and
+                   library times; die_contention's one-die time and
                    its time per event row there; each attention kernel's
                    bound share and ptxas registers, shared memory and
                    spills. fused_reap must leave its input rings as they
@@ -40,6 +41,12 @@ runs eight phases, printing one JSON line each:
                    tokens, kernels on and timed; then the plain path,
                    teacher-forced on the kernel run's tokens, must agree
                    on the prefill's and every decode step's logits
+
+After the kernels phase, one line ``{"launch_floor": ...}`` times an
+empty kernel (``csrc/launch_floor.cu``) through the wrappers' launch path:
+the device ms, card ms and host microseconds that any launch costs, which
+the kernels' own figures (host microseconds a call among them) are read
+against.
 
 Then one JSON line listing the kernels, the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -124,6 +131,33 @@ def bitwise_equal(a, b) -> bool:
         return bool(torch.equal(a.contiguous().view(t),
                                 b.contiguous().view(t)))
     return bool(torch.equal(a, b))
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds a call: ``calls`` calls after a warmup, with no
+    synchronisation between them, timed with ``time.perf_counter``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
+def abs_err(got, want) -> float:
+    """Largest |got - want|, where equal values and NaN against NaN count
+    as 0."""
+    import torch
+
+    if not got.numel():
+        return 0.0
+    g, w = got.double(), want.double()
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    return float(torch.where(same, 0.0, (g - w).abs()).max())
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -377,6 +411,63 @@ def kernel_cases(dev):
                                           range(4, 8))),
              ("N=0", fr(32, 1024, 0, 0.9))]
 
+    # Cases added with the one-launch seg_scan and the lane-per-unit
+    # block_gather; their data is drawn after every earlier case's. A tile
+    # of seg_scan is 8192 elements (one cluster of 8 CTAs): 8193 and 16385
+    # end one element into a tile, 2^20 + 3 runs 129 tiles through the
+    # look-back.
+    def ss_zeros(n, p_head):
+        """Values of +0 and -0: of two zeros the max takes +0."""
+        zeros = np.array([0.0, -0.0], np.float32)
+        return (t(rng.choice(zeros, n)), t(rng.random(n) < p_head)), {}
+
+    def ss_nan(n, p_head):
+        """NaN values with two payloads on 0.2% of the elements each: a
+        NaN propagates to the segment's end, as the canonical NaN."""
+        (v, h), kw = ss(n, p_head)
+        nan = t(np.array([0x7FC00001, 0xFFA00042], np.uint32).view(np.float32))
+        v[t(rng.random(n) < 0.002)] = nan[0]
+        v[t(rng.random(n) < 0.002)] = nan[1]
+        return (v, h), kw
+
+    seg += [("n=8193 (two tiles)", ss(8193, 0.02)),
+            ("n=16384", ss(16384, 0.02)),
+            ("n=16385", ss(16385, 0.02)),
+            ("n=2^20+3", ss(2**20 + 3, 1e-4)),
+            ("n=2^20+3 no heads (look-back to tile 0)", ss(2**20 + 3, 0.0)),
+            ("n=16385 all heads", ss(16385, 1.1)),
+            ("signed zeros n=8192", ss_zeros(8192, 0.01)),
+            ("signed zeros n=300007", ss_zeros(300007, 1e-4)),
+            ("NaN values n=8192", ss_nan(8192, 0.01)),
+            ("NaN values n=300007", ss_nan(300007, 1e-4)),
+            ("unaligned n=8193", unaligned(ss(8194, 0.02), range(2)))]
+
+    def bg_view(nb, width, n):
+        """A flash table one element past an aligned address: the byte
+        path even where the row width is a multiple of 16 bytes."""
+        flat = torch.randn(nb * width + 1, device=dev)
+        idx = rng.integers(0, nb, n).astype(np.int32)
+        return (flat[1:].view(nb, width), t(idx)), {}
+
+    # Past 2 GiB: 2^25 + 4096 rows of 64 bytes, indices in the last 5000
+    # rows and a few past the end (clamped to the last row).
+    big = 2**25 + 4096
+    gather += [("n=8191 (not a multiple of 32)",
+                bg(16384, 16, 8191, torch.float32)),
+               ("n=33 width 3 f32 (byte path)", bg(100, 3, 33, torch.float32)),
+               ("n=1", bg(64, 16, 1, torch.float32)),
+               ("width 4 f32 (one vector a row)",
+                bg(512, 4, 1000, torch.float32)),
+               ("width 200 f32 (50 vectors a row)",
+                bg(1000, 200, 999, torch.float32)),
+               ("width 1 f32 (4 bytes a row)", bg(64, 1, 100, torch.float32)),
+               ("width 300 bf16 (600-byte rows, byte path)",
+                bg(300, 300, 77, torch.bfloat16)),
+               ("flash one element past alignment (byte path)",
+                bg_view(4096, 16, 2000)),
+               ("flash over 2 GiB, indices near its end",
+                bg(big, 16, 8192, torch.float32, big - 5000, big + 10))]
+
     return [
         ("seg_scan", seg_scan, ref.seg_scan_ref, seg),
         ("die_contention", die_contention, ref.die_contention_ref, die),
@@ -533,10 +624,7 @@ def phase_kernels(dev, card):
                 ok = all(bitwise_equal(g, w) for g, w in zip(got, want))
             else:
                 ok = all(close_enough(g, w) for g, w in zip(got, want))
-            err = max(
-                float((g.double() - w.double()).abs().max())
-                if g.numel() else 0.0 for g, w in zip(got, want)
-            )
+            err = max(abs_err(g, w) for g, w in zip(got, want))
             detail.append({"kernel": name, "case": label, "ok": ok,
                            "max_abs_err": err})
             check(ok, f"{name} [{label}] differs from its plain version "
@@ -547,13 +635,17 @@ def phase_kernels(dev, card):
         b_ms, b_by = bound(nbytes, ops, peak)
         lib = library_fn(name, main)
         dev_ms, events = device_ms(lambda: kern(*main, **kw))
+        # Fewer calls where the device time would fill the launch queue.
+        calls = 1000 if dev_ms < 0.1 else 100
         out[name] = {
             "ms": median_ms(lambda: kern(*main, **kw)),
             "device_ms": dev_ms, "device_events_per_call": events,
+            "host_us": host_us(lambda: kern(*main, **kw), calls),
             "plain_ms": median_ms(lambda: plain(*main, **kw), reps=10),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": median_ms(lib) if lib else None,
             "library_device_ms": device_ms(lib)[0] if lib else None,
+            "library_host_us": host_us(lib, calls) if lib else None,
             "max_abs_err": next(d["max_abs_err"] for d in detail
                                 if d["kernel"] == name),
         }
@@ -582,6 +674,26 @@ def phase_kernels(dev, card):
                         "attention bf16": "|diff| <= 2^-7 |plain| + 1e-5"},
           "cases": detail, "timing": out, "attention": attention})
     return out
+
+
+def phase_launch_floor(card):
+    """The empty kernel of ``csrc/launch_floor.cu``, launched through the
+    wrappers' own path (``build.bind``, ``build.launch_args``) and timed
+    as the kernels are: the device's and the host's floor for one
+    launch."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    fn = build.bind("launch_floor", [ctypes.c_int, ctypes.c_void_p])
+
+    def launch():
+        build.check("launch_floor", fn(*build.launch_args(0)))
+
+    dev_ms, events = device_ms(launch)
+    floor = {"device_ms": dev_ms, "device_events_per_call": events,
+             "ms": median_ms(launch), "host_us": host_us(launch)}
+    emit({"launch_floor": floor, "card": card})
 
 
 # -- phases: the main path ----------------------------------------------------
@@ -924,6 +1036,7 @@ def main() -> int:
           "build_s": build_s, "ptxas": ptxas})
 
     timing = phase_kernels(dev, card)
+    phase_launch_floor(card)
     launches = dict.fromkeys(build.KERNELS, 0)
     for counts in (phase_main_read(dev, card), phase_main_mixed(dev, card)):
         for k, v in counts.items():

@@ -6,7 +6,7 @@ that name: ``benchmarks/common.py::swarmio_cfg()`` (32 SQs x 1024, fetch
 width 256, 16 service units, aggregated timing, coalesced DSA fetch,
 DSA datapath) on ``FUTURE_40M`` (40e6 IOPS, 512 instances, 16384 blocks).
 
-    python -m repro_torch.bench [--rounds 24] [--mixed] [--trace PATH]
+    python -m repro_torch.bench [--rounds 24] [--mixed] [--plain] [--trace PATH]
     python -m repro_torch.bench --serve [--steps 16] [--trace PATH]
 
 The first runs the drive read-only with the kernel flags on, once to warm
@@ -14,7 +14,9 @@ up and once under ``torch.profiler``; ``--mixed`` runs it under the 70/30
 read/write mix instead (``MixedReadWrite(read_frac=0.7)``,
 ``chip_smoke.py``'s ``main_path_mixed``) with ``use_pallas_flash`` on as
 well, so that the rounds also price writes on the dies through
-``die_contention``. ``--serve`` profiles the serving decode step instead:
+``die_contention``; ``--plain`` turns every kernel flag off, so that the
+rounds run the scans on ``segops.associative_scan``.
+``--serve`` profiles the serving decode step instead:
 starcoder2-3b at full width with the attention kernels on, batch 8 after
 a 4096-token prompt (``chip_smoke.py``'s ``serve_long``), ``--steps``
 decode steps after one warm-up step. Each prints one JSON line: wall and
@@ -57,10 +59,10 @@ _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 
 # Device-side names of the engine kernels' CUDA functions, by kernel.
 _ENGINE_KERNELS = {
-    "seg_scan": ("seg_scan_tile", "seg_scan_carry", "seg_scan_fix"),
+    "seg_scan": ("seg_scan_kernel",),
     "die_contention": ("die_contention_kernel",),
     "fused_reap": ("fused_reap_kernel",),
-    "block_gather": ("gather_vec16", "gather_bytes"),
+    "block_gather": ("gather_rows",),
 }
 
 
@@ -116,21 +118,23 @@ def _profiled(fn, n: int, trace: "str | None") -> dict:
 
 
 def profile_rounds(rounds: int, trace: "str | None",
-                   mixed: bool = False) -> dict:
+                   mixed: bool = False, plain: bool = False) -> dict:
     from repro_torch.core import engine
     from repro_torch.core.types import PlatformModel, WorkloadConfig
     from repro_torch.workloads import MixedReadWrite
 
     dev = torch.device("cuda", 0)
-    cfg, ssd = local_1drive(emulate_data=True, use_pallas=True,
-                            use_pallas_segscan=True, use_pallas_reap=True,
-                            use_pallas_flash=mixed)
+    on = not plain
+    cfg, ssd = local_1drive(emulate_data=True, use_pallas=on,
+                            use_pallas_segscan=on, use_pallas_reap=on,
+                            use_pallas_flash=mixed and on)
     wl = (MixedReadWrite(read_frac=0.7, io_depth=256) if mixed
           else WorkloadConfig(io_depth=256))
     state = engine.init_state(cfg, ssd, wl, device=dev)
     runner = engine.make_runner(cfg, ssd, wl, PlatformModel(), rounds, dev)
     runner(state)
-    return {"path": "mixed 70/30 rounds" if mixed else "read rounds",
+    path = "mixed 70/30 rounds" if mixed else "read rounds"
+    return {"path": path + (", kernels off" if plain else ""),
             **_profiled(lambda: runner(state), rounds, trace)}
 
 
@@ -166,14 +170,18 @@ def main() -> None:
                     help="profile the serving decode step instead")
     ap.add_argument("--mixed", action="store_true",
                     help="profile rounds of the 70/30 read/write mix")
+    ap.add_argument("--plain", action="store_true",
+                    help="rounds with every kernel flag off")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.bench needs a CUDA device")
-    res = (profile_decode(args.steps, args.trace) if args.serve
-           else profile_rounds(args.rounds, args.trace, args.mixed))
+    if args.serve:
+        res = profile_decode(args.steps, args.trace)
+    else:
+        res = profile_rounds(args.rounds, args.trace, args.mixed, args.plain)
     print(json.dumps(res), flush=True)
 
 

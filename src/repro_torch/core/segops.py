@@ -78,12 +78,20 @@ def seq_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``lax``'s interleave: it pads both halves with zeros and adds them,
+    so a float element comes out as ``x + 0.0`` (-0 becomes +0, every
+    other value keeps its bits). The port writes that sum straight into
+    each half's slots, one kernel a half as a copy would be."""
     out = torch.empty(
         (a.shape[0] + b.shape[0],) + tuple(a.shape[1:]),
         dtype=a.dtype, device=a.device,
     )
-    out[0::2] = a
-    out[1::2] = b
+    if out.dtype.is_floating_point:
+        torch.add(a, 0.0, out=out[0::2])
+        torch.add(b, 0.0, out=out[1::2])
+    else:
+        out[0::2] = a
+        out[1::2] = b
     return out
 
 
@@ -115,10 +123,26 @@ def associative_scan(
     return _scan(list(elems))
 
 
+def jax_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum``'s rule on every device: a NaN propagates, and of two
+    zeros +0 is the larger. (``torch.maximum`` keeps an operand of such a
+    tie, which one depending on the device and the length.) The max is
+    negative exactly when both operands are, so ``torch.maximum``'s
+    magnitude takes the AND of the operands' sign bits: a tie of zeros
+    gives -0 only where both are -0. A NaN result may carry either sign."""
+    signs = (a.view(I32) & b.view(I32)).view(F32)
+    return torch.copysign(torch.maximum(a, b), signs)
+
+
 def segmented_prefix_max(
     values: torch.Tensor, heads: torch.Tensor
 ) -> torch.Tensor:
-    """Inclusive prefix max restarting at each ``heads[i]==True``."""
+    """Inclusive prefix max restarting at each ``heads[i]==True``.
+
+    As in the reference, the interleave of ``associative_scan`` adds
+    +0.0, so no output of two or more elements is -0; the combine's
+    choice between zeros of two signs therefore never shows, and it
+    keeps one ``torch.maximum``."""
 
     def combine(a, b):
         fa, va = a
@@ -126,6 +150,30 @@ def segmented_prefix_max(
         return [fa | fb, torch.where(fb, vb, torch.maximum(va, vb))]
 
     return associative_scan(combine, [heads, values])[1]
+
+
+_INF_BITS = 0x7F800000
+_MAG = 0x7FFFFFFF
+
+
+def segmented_prefix_jax_max(
+    values: torch.Tensor, heads: torch.Tensor
+) -> torch.Tensor:
+    """The segmented inclusive prefix max under ``jax_max``'s rule with
+    no +0.0 added anywhere: what a sequential fold of ``jnp.maximum``
+    gives, and so what the reference's ``seg_scan`` kernel gives.
+
+    The float32 bits map once to int32 keys that order as the floats do
+    with -0 below +0 (-0 -> -1, +0 -> 0), every NaN pinned to the key
+    0x7FFFFFFF above +inf; the scan takes one integer max a combine
+    (integers pass the interleave unchanged), and the keys map back once.
+    A NaN comes out as 0x7FFFFFFF, the card's canonical NaN, whatever
+    payload went in."""
+    b = values.view(I32)
+    mag = b & _MAG
+    key = torch.where(mag > _INF_BITS, _MAG, mag ^ (b >> 31))
+    out = segmented_prefix_max(key, heads)
+    return (out ^ ((out >> 31) & _MAG)).view(F32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,6 +354,22 @@ def block_counts(valid: torch.Tensor, block: int) -> torch.Tensor:
     return torch.sum(valid.reshape(-1, block).to(I32), dim=1, dtype=I32)
 
 
+def _seeded(ready, cost, heads, seed):
+    """``a = ready + cost``, and at each head ``max(a, seed + cost)``: the
+    server's state entering the segment, for both routes below. Of two
+    zeros ``jnp.maximum`` takes +0, but that choice shows only in a scan
+    of one element: with two or more, the associative route's interleave
+    adds +0.0 to every output, and on the kernel route a zero of either
+    sign there meets ``s`` in ``a - s`` and ``s + ...`` so that no output
+    is -0 either way (``tests/test_torch_segops.py`` holds both routes
+    against the reference on zeros of both signs). So only a one-element
+    scan seeds with ``jax_max``; otherwise one ``torch.maximum`` adds no
+    device event."""
+    a = ready + cost
+    mx = jax_max if a.shape[0] < 2 else torch.maximum
+    return torch.where(heads, mx(a, seed + cost), a)
+
+
 def queueing_scan_via_segmax(
     ready: torch.Tensor,
     cost: torch.Tensor,
@@ -317,8 +381,7 @@ def queueing_scan_via_segmax(
     ``busy_j = S_j + max_{i <= j, same segment} (a_i - S_i)`` with
     ``S = cumsum(cost)``. Exact against the reference scan when costs are
     integer-valued (the cumsum's association is then irrelevant)."""
-    a = ready + cost
-    a = torch.where(heads, torch.maximum(a, seed + cost), a)
+    a = _seeded(ready, cost, heads, seed)
     s = torch.cumsum(cost.to(F32), 0, dtype=F32)
     return s + segmax_fn(a - s, heads)
 
@@ -343,13 +406,17 @@ def queueing_scan(
     ``use_pallas=True`` (``EngineConfig.use_pallas_segscan``) routes the
     core through the ``seg_scan`` kernel via ``queueing_scan_via_segmax``;
     otherwise the scan runs on JAX's combine tree (``associative_scan``).
+    The combine keeps one ``torch.maximum``: a zero's sign never changes
+    a magnitude downstream (``x + ±0`` and ``max(x, ±0)`` differ only when
+    the result is zero), and the interleave turns every -0 of the output
+    into +0, as the reference's does, so no output shows the combine's
+    choice between zeros of two signs.
     """
     if use_pallas:
         return queueing_scan_via_segmax(
             ready, cost, heads, seed, segmax_fn=_kernel_segmax
         )
-    a = ready + cost
-    a = torch.where(heads, torch.maximum(a, seed + cost), a)
+    a = _seeded(ready, cost, heads, seed)
 
     def combine(left, right):
         fl, al, cl = left

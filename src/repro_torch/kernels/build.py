@@ -9,6 +9,13 @@ rebuilt and a stale library is never loaded. A failed build raises.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it; the
 wrappers add one right after their launch and nowhere else.
+``launch_floor.cu`` (an empty kernel, the device's cost of one launch) is
+built with the kernels but is not one of them: it has no count.
+
+A wrapper's launch path is part of its cost, since the main path's
+kernels take microseconds: ``bind`` sets a launch function's signature
+once and returns the cached function after that, pointers and the stream
+pass as Python ints.
 """
 from __future__ import annotations
 
@@ -21,12 +28,15 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 KERNELS = ("seg_scan", "die_contention", "fused_reap", "block_gather",
            "block_gather_tiled", "flash_attention", "decode_attention")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+# Built beside the kernels, timed by chip_smoke.py, launched by no path.
+SOURCES = KERNELS + ("launch_floor",)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (
@@ -38,6 +48,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, Tuple["ctypes._CFuncPtr", tuple]] = {}
 _LOCK = threading.Lock()
 BUILD_LOG: Dict[str, str] = {}
 
@@ -63,7 +74,7 @@ def _lib_path(name: str) -> Path:
 def build_all() -> float:
     """Compile every kernel that has no up-to-date library; returns the
     wall seconds the build took (0 when everything was built already)."""
-    todo = [n for n in KERNELS if not _lib_path(n).exists()]
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
     if not todo:
         return 0.0
     nvcc = _nvcc()
@@ -120,13 +131,16 @@ def check(name: str, rc: int) -> None:
 
 def require(t, what: str, dtype=None, ndim=None, device=None) -> None:
     """Validate one kernel input: a contiguous CUDA tensor of the given
-    dtype, rank and device. Raises ``ValueError`` naming the input."""
+    dtype, rank and device (a ``torch.device`` or its index). Raises
+    ``ValueError`` naming the input."""
     import torch
 
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError(f"{what} must be a CUDA tensor")
-    if device is not None and t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if device is not None:
+        index = device if isinstance(device, int) else device.index
+        if t.get_device() != index:
+            raise ValueError(f"{what} is on {t.device}, expected cuda:{index}")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
     if ndim is not None and t.dim() != ndim:
@@ -135,22 +149,32 @@ def require(t, what: str, dtype=None, ndim=None, device=None) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def launch_args(device):
-    """(device index, stream handle) for a launch on ``device``'s current
-    PyTorch stream."""
+def launch_args(device) -> Tuple[int, int]:
+    """(device index, stream handle) for a launch on the current PyTorch
+    stream of ``device`` (a ``torch.device`` or its index), as ints."""
     import torch
 
-    stream = torch.cuda.current_stream(device).cuda_stream
-    return ctypes.c_int(device.index), ctypes.c_void_p(stream)
+    index = device if isinstance(device, int) else device.index
+    return index, torch.cuda.current_stream(index).cuda_stream
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    return t.data_ptr()
 
 
 def bind(name: str, argtypes) -> "ctypes._CFuncPtr":
-    """The C launch function ``<name>_launch`` with its signature set."""
-    fn = getattr(library(name), f"{name}_launch")
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
+    """The C launch function ``<name>_launch`` with its signature set; the
+    first call loads the library and sets the signature, later calls
+    return the cached function. A later call with other ``argtypes``
+    raises ``ValueError``: one function has one signature."""
+    sig = tuple(argtypes)
+    got = _FNS.get(name)
+    if got is None:
+        fn = getattr(library(name), f"{name}_launch")
+        fn.argtypes = sig
+        fn.restype = ctypes.c_int
+        _FNS[name] = got = (fn, sig)
+    elif got[1] != sig:
+        raise ValueError(
+            f"{name}_launch is bound with argtypes {got[1]}, not {sig}")
+    return got[0]

@@ -20,14 +20,7 @@ from repro_torch.core.types import F32, I32
 
 NEG = -3e38
 
-
-def jax_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``jnp.maximum``'s rule on every device: a NaN propagates, and of two
-    zeros +0 is the larger. (``torch.maximum`` keeps the first operand of
-    such a tie on the CPU.) A tie's bits are the AND of the operands':
-    the value itself, and -0 only where both are -0."""
-    tie = (a.view(I32) & b.view(I32)).view(F32)
-    return torch.where(a == b, tie, torch.maximum(a, b))
+jax_max = segops.jax_max
 
 
 def block_gather_ref(flash: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -52,10 +45,12 @@ def block_gather_tiled_ref(flash: torch.Tensor, idx: torch.Tensor, *,
 def seg_scan_ref(values: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
     """Segmented inclusive prefix max restarting where ``heads[i]``; the
     rows before the first head continue a segment seeded with ``NEG`` (the
-    sequential fold ``run = where(h, v, max(run, v))`` from ``run = NEG``)."""
-    out = segops.segmented_prefix_max(values, heads)
+    sequential fold ``run = where(h, v, max(run, v))`` from ``run = NEG``)
+    with ``jnp.maximum``'s max; a NaN comes out as 0x7FFFFFFF (the card's
+    canonical NaN, which the CUDA kernel's ``max.NaN.f32`` returns)."""
+    out = segops.segmented_prefix_jax_max(values, heads)
     no_head_yet = torch.cumsum(heads.to(I32), 0, dtype=I32) == 0
-    return torch.where(no_head_yet, torch.maximum(out, _neg(values)), out)
+    return torch.where(no_head_yet, jax_max(out, _neg(values)), out)
 
 
 def _neg(like: torch.Tensor) -> torch.Tensor:

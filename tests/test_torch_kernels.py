@@ -51,6 +51,73 @@ def test_seg_scan_plain_matches_pallas(n, first_head):
          ref.seg_scan_ref(t(v), t(h)))
 
 
+def seg_special_case(n, kind, seed):
+    """``signed-zeros``: values of +0 and -0. ``nan``: finite values with
+    NaNs of two payloads and both signs on 5% of the elements. Random
+    heads, the first element not a head."""
+    rng = np.random.default_rng(seed)
+    if kind == "signed-zeros":
+        v = rng.choice(np.array([0.0, -0.0], np.float32), n)
+    else:
+        v = rng.uniform(-1e3, 1e3, n).astype(np.float32)
+        v[rng.random(n) < 0.05] = rng.choice(
+            np.array([0x7FC00001, 0xFFA00042], np.uint32).view(np.float32))
+    h = rng.random(n) < 0.1
+    h[0] = False
+    return v, h
+
+
+@pytest.mark.parametrize("kind", ["signed-zeros", "nan"])
+@pytest.mark.parametrize("n", [8, 300, 4096])
+def test_seg_scan_plain_matches_pallas_on_special_values(n, kind):
+    """Of two zeros the max takes +0, and -0 stays where every value so
+    far in the segment is -0 (the Pallas kernel adds nothing). A NaN runs
+    to the segment's end: positions equal, and the plain version pins the
+    card's canonical NaN 0x7FFFFFFF (the CUDA kernel's ``max.NaN.f32``
+    returns no other), while the reference passes an input's payload
+    through, so the payload is not compared with the reference."""
+    v, h = seg_special_case(n, kind, n)
+    want = np.asarray(jops.seg_scan(jnp.asarray(v), jnp.asarray(h)))
+    got = ref.seg_scan_ref(t(v), t(h)).numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(nan, np.isnan(got))
+    np.testing.assert_array_equal(want[~nan].view(np.uint32),
+                                  got[~nan].view(np.uint32))
+    assert (got[nan].view(np.uint32) == 0x7FFFFFFF).all()
+
+
+def test_jax_max_lives_in_segops():
+    from repro_torch.core import segops
+
+    assert ref.jax_max is segops.jax_max
+
+
+def test_every_source_is_a_kernel_or_the_launch_floor():
+    """``build_all`` compiles every ``csrc/*.cu``; only the seven kernels
+    have launch counts."""
+    names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    assert names == sorted(build.SOURCES)
+    assert "launch_floor" not in build.KERNELS
+    assert "launch_floor" not in build.LAUNCHES
+
+
+def test_bind_caches_one_signature_a_function(monkeypatch):
+    """``bind`` sets a launch function's signature once; a later call with
+    the same signature gets the cached function, one with another raises
+    instead of launching with the first signature's conversions."""
+    import ctypes
+    import types
+
+    lib = types.SimpleNamespace(probe_launch=ctypes.CDLL(None).abs)
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(build, "_FNS", {})
+    fn = build.bind("probe", [ctypes.c_int])
+    assert fn.restype is ctypes.c_int and fn(-3) == 3
+    assert build.bind("probe", [ctypes.c_int]) is fn
+    with pytest.raises(ValueError, match="probe_launch"):
+        build.bind("probe", [ctypes.c_void_p])
+
+
 def die_case(n, k, seed, p_event=0.5):
     rng = np.random.default_rng(seed)
     return (rng.integers(0, 1000, n).astype(np.float32),
@@ -307,9 +374,22 @@ def test_cuda_kernels_match_plain_versions(card):
     def on(*xs):
         return [t(x).to(card) for x in xs]
 
-    for n, fh in [(1, False), (8229, True), (300007, False)]:
+    # A tile is one cluster of 8192 elements: one tile, one element into
+    # the second, three tiles with no head (the look-back runs to tile 0),
+    # 129 tiles; signed zeros and NaNs (bit-identical: both sides give the
+    # canonical NaN); inputs one element past an aligned address.
+    for n, fh in [(1, False), (8229, True), (300007, False), (8192, False),
+                  (8193, True), (16385, False), (2**20 + 3, False)]:
         args = on(*seg_case(n, n, first_head=fh))
         same(ref.seg_scan_ref(*args).cpu().numpy(), seg_scan(*args))
+    args = on(*seg_case(20000, 5, p_head=0.0, first_head=False))
+    same(ref.seg_scan_ref(*args).cpu().numpy(), seg_scan(*args))
+    for n, kind in [(8192, "signed-zeros"), (300007, "signed-zeros"),
+                    (8192, "nan"), (300007, "nan")]:
+        args = on(*seg_special_case(n, kind, n))
+        same(ref.seg_scan_ref(*args).cpu().numpy(), seg_scan(*args))
+    args = [x[1:] for x in on(*seg_case(8194, 6))]
+    same(ref.seg_scan_ref(*args).cpu().numpy(), seg_scan(*args))
     args = on(*die_case(8192, 32, 1, 0.3))
     for a, b in zip(ref.die_contention_ref(*args), die_contention(*args)):
         same(a.cpu().numpy(), b)
@@ -360,6 +440,26 @@ def test_cuda_kernels_match_plain_versions(card):
             .astype(np.int32)).to(card)
     same(ref.block_gather_ref(flash, idx).cpu().numpy(),
          block_gather(flash, idx))
+    # Descriptor counts that are not a multiple of 32, rows of 1, 4, 50
+    # and 600-byte units, a flash table one element past alignment (the
+    # byte path), and one past 2 GiB with indices near its end.
+    rng = np.random.default_rng(15)
+    for shape, n, dtype in [((16384, 16), 8191, torch.float32),
+                            ((100, 3), 33, torch.float32),
+                            ((512, 4), 1000, torch.float32),
+                            ((1000, 200), 999, torch.float32),
+                            ((300, 300), 77, torch.bfloat16)]:
+        f = torch.randn(*shape, device=card).to(dtype)
+        i = t(rng.integers(-10, shape[0] + 10, n).astype(np.int32)).to(card)
+        same(ref.block_gather_ref(f, i).cpu().numpy(), block_gather(f, i))
+    f = torch.randn(4096 * 16 + 1, device=card)[1:].view(4096, 16)
+    i = t(rng.integers(0, 4096, 2000).astype(np.int32)).to(card)
+    same(ref.block_gather_ref(f, i).cpu().numpy(), block_gather(f, i))
+    big = 2**25 + 4096
+    f = torch.randn(big, 16, device=card)
+    i = t(rng.integers(big - 5000, big + 10, 8192).astype(np.int32)).to(card)
+    same(ref.block_gather_ref(f, i).cpu().numpy(), block_gather(f, i))
+    del f
     from repro_torch.kernels.block_gather_tiled import block_gather_tiled
 
     for tile in (1, 8, 16):

@@ -62,6 +62,88 @@ def test_segmented_prefix_max(n):
          ts.segmented_prefix_max(t(v), t(h)))
 
 
+SPECIAL = [8, 300, 4096]
+ZEROS = np.array([0.0, -0.0], np.float32)
+NANS = np.array([0x7FC00001, 0xFFA00042], np.uint32).view(np.float32)
+
+
+def same_nan(a, b):
+    """Bit-identical where the reference is not NaN; NaN at the same
+    positions, payload and sign not compared: the card's max returns its
+    canonical NaN and XLA passes an operand's through, so no payload rule
+    holds on both."""
+    a, b = np.asarray(a), b.numpy()
+    assert a.dtype == b.dtype and a.shape == b.shape
+    nan = np.isnan(a)
+    np.testing.assert_array_equal(nan, np.isnan(b))
+    np.testing.assert_array_equal(a[~nan].view(np.uint32),
+                                  b[~nan].view(np.uint32))
+
+
+def special_values(n, kind, rng):
+    """``signed-zeros``: +0 and -0 only. ``nan``: finite values with NaNs
+    of two payloads and both signs on 5% of the elements."""
+    if kind == "signed-zeros":
+        return rng.choice(ZEROS, n)
+    v = rng.uniform(-100, 100, n).astype(np.float32)
+    v[rng.random(n) < 0.05] = rng.choice(NANS)
+    return v
+
+
+def test_jax_max_is_jnp_maximum():
+    """Every pair of zeros, infinities, NaNs and normal numbers: bits equal
+    to ``jnp.maximum``'s where it is not NaN, NaN where it is. (XLA on the
+    CPU flushes a subnormal result to zero; the port does not, so
+    subnormals stay out.)"""
+    vals = np.array([0.0, -0.0, np.inf, -np.inf, 1.5, -1.5, 3e38, -3e38,
+                     1.2e-38, -1.2e-38], np.float32)
+    vals = np.concatenate([vals, NANS])
+    a, b = np.meshgrid(vals, vals)
+    a, b = a.reshape(-1), b.reshape(-1)
+    same_nan(jnp.maximum(j(a), j(b)), ts.jax_max(t(a), t(b)))
+
+
+@pytest.mark.parametrize("kind", ["signed-zeros", "nan"])
+@pytest.mark.parametrize("n", SPECIAL)
+def test_segmented_prefix_max_special_values(n, kind):
+    """The reference's scan adds +0.0 in every interleave, so no output
+    of two or more elements is -0, and a NaN runs to the segment's end."""
+    rng = np.random.default_rng(n)
+    v = special_values(n, kind, rng)
+    h = rng.random(n) < 0.1
+    same_nan(jax.jit(js.segmented_prefix_max)(j(v), j(h)),
+             ts.segmented_prefix_max(t(v), t(h)))
+
+
+@pytest.mark.parametrize("n", SPECIAL)
+def test_key_space_scan_keeps_todays_bits(n):
+    """On floats with no zero tie and no NaN, the key-space scan gives the
+    bits of the reference's scan and of the port's float scan."""
+    rng = np.random.default_rng(n + 7)
+    v = rng.uniform(-1e3, 1e3, n).astype(np.float32)
+    h = rng.random(n) < 0.1
+    keys = ts.segmented_prefix_jax_max(t(v), t(h))
+    same(jax.jit(js.segmented_prefix_max)(j(v), j(h)), keys)
+    same(ts.segmented_prefix_max(t(v), t(h)).numpy(), keys)
+
+
+@pytest.mark.parametrize("n", SPECIAL)
+def test_key_space_scan_is_the_sequential_jnp_fold(n):
+    """``segmented_prefix_jax_max`` on zeros of both signs: the sequential
+    fold of ``jnp.maximum`` keeps -0 where every value so far in the
+    segment is -0 (no interleave adds +0.0 there)."""
+    rng = np.random.default_rng(n + 11)
+    v = rng.choice(ZEROS, n)
+    h = rng.random(n) < 0.1
+
+    def step(run, x):
+        r = jnp.where(x[1], x[0], jnp.maximum(run, x[0]))
+        return r, r
+
+    _, want = jax.lax.scan(step, j(v[0]), (j(v), j(h)))
+    same(want, ts.segmented_prefix_jax_max(t(v), t(h)))
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_associative_scan_uses_the_reference_tree(n):
     """A float sum is order-sensitive: equal bits mean equal trees."""
@@ -157,6 +239,45 @@ def test_queueing_scan_kernel_route_integer_costs(n):
     out = ts.queueing_scan(*map(t, args), use_pallas=True)
     same(ref, out)
     same(ref, ts.queueing_scan(*map(t, args)))
+
+
+def _special_scan_case(n, kind, seed):
+    """Readies, costs and seeds of +0 and -0 (``signed-zeros``), or
+    integer times with NaN readies (``nan``)."""
+    rng = np.random.default_rng(seed)
+    heads = rng.random(n) < 0.1
+    if kind == "signed-zeros":
+        return (rng.choice(ZEROS, n), rng.choice(ZEROS, n), heads,
+                rng.choice(ZEROS, n))
+    ready = rng.integers(0, 500, n).astype(np.float32)
+    ready[rng.random(n) < 0.05] = rng.choice(NANS)
+    return (ready, rng.integers(0, 20, n).astype(np.float32), heads,
+            rng.integers(0, 300, n).astype(np.float32))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True],
+                         ids=["associative", "kernel-route"])
+@pytest.mark.parametrize("kind", ["signed-zeros", "nan"])
+@pytest.mark.parametrize("n", SPECIAL)
+def test_queueing_scan_special_values(n, kind, use_pallas):
+    """Both routes against the reference's (its Pallas kernel in interpret
+    mode on the kernel route): of two zeros the seeding max takes +0, and
+    the associative route's interleave turns -0 into +0."""
+    args = _special_scan_case(n, kind, n + 3)
+    ref = js.queueing_scan(*map(j, args), use_pallas=use_pallas)
+    same_nan(ref, ts.queueing_scan(*map(t, args), use_pallas=use_pallas))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True],
+                         ids=["associative", "kernel-route"])
+def test_queueing_scan_one_element_seed_takes_plus_zero(use_pallas):
+    """One element, a head: ready + cost = -0 against seed + cost = +0.
+    ``jnp.maximum`` takes +0, and with one element no interleave runs."""
+    args = (np.array([-0.0], np.float32), np.array([-0.0], np.float32),
+            np.array([True]), np.array([0.0], np.float32))
+    ref = js.queueing_scan(*map(j, args), use_pallas=use_pallas)
+    assert np.asarray(ref).view(np.uint32)[0] == 0
+    same(ref, ts.queueing_scan(*map(t, args), use_pallas=use_pallas))
 
 
 def test_true_div_and_seq_cumsum():
