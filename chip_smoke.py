@@ -23,11 +23,21 @@ runs eight phases, printing one JSON line each:
   main_path_read   the paper's 40-MIOPS drive (``local_1drive``: 32 SQs x
                    1024, fetch 256, 16 units, DSA datapath, closed loop at
                    io_depth 256) for 24 rounds with the block_gather,
-                   seg_scan and fused_reap kernels on
-  main_path_mixed  the same drive under the 70/30 read/write mix with the
+                   seg_scan and fused_reap kernels on, from one initial
+                   state through the eager ``engine.run`` and through
+                   ``engine.make_runner`` (one captured round replayed a
+                   round): bit-identical final states, the recorded
+                   virtual numbers, wall ms and device ms a round, device
+                   events a round and the device's idle share of each; a
+                   ``donate=True`` chain of two calls equal to one run of
+                   48 rounds; a profiler window over one graphed round
+                   that holds one ``cudaGraphLaunch`` and no kernel launch
+                   or copy from the host
+  main_path_mixed  the same under the 70/30 read/write mix with the
                    die_contention kernel on as well
   exact            an integer-timestamp drive at full width: kernels on and
-                   off give bit-identical final states
+                   off, each graphed and eager, give bit-identical final
+                   states
   cpu_vs_card      stock local_1drive, kernels off, on the card and on the
                    CPU: integer leaves equal, float leaves within a stated
                    ULP bound
@@ -36,11 +46,17 @@ runs eight phases, printing one JSON line each:
                    32, 16 tokens) with the attention kernels on: generate
                    plus the SSD-backed KV tier, whose virtual-time stats
                    must reproduce the reference's; the tier again with
-                   fused_reap on, bit-identical
+                   fused_reap on, bit-identical; once the phase drops its
+                   objects, the card holds no more than before it
   serve_long       generate at full width, batch 8, prompt 4096, 128
-                   tokens, kernels on and timed; then the plain path,
-                   teacher-forced on the kernel run's tokens, must agree
-                   on the prefill's and every decode step's logits
+                   tokens, kernels on, its decode step a CUDA graph, timed
+                   beside an eager decode loop from the same prefill (equal
+                   tokens, bit-identical logits, wall and device ms a step
+                   of each, one graph launch a graphed step) and its peak
+                   device memory; then the
+                   plain path, teacher-forced on the kernel run's tokens,
+                   must agree on the prefill's and every decode step's
+                   logits
 
 After the kernels phase, one line ``{"launch_floor": ...}`` times an
 empty kernel (``csrc/launch_floor.cu``) through the wrappers' launch path:
@@ -698,39 +714,169 @@ def phase_launch_floor(card):
 
 # -- phases: the main path ----------------------------------------------------
 
-def drive(cfg, ssd, wl, dev, reps=3):
-    """Warm up once, then time ``reps`` runs of ROUNDS rounds each from the
-    initial state; the launch counts cover exactly the timed runs."""
+# The virtual numbers of both paths as the eager runner has always given
+# them on the card (PERF.md): the graphed runner must reproduce them to
+# the last digit.
+VIRTUAL = {
+    "read": {"virtual_miops": 35.566916, "p50_us": 201.6914520263672,
+             "p99_us": 241.4418182373047},
+    "mixed": {"virtual_miops": 0.5143973125},
+}
+
+
+def graph_proof(step):
+    """The host's CUDA calls in a torch.profiler window over one call of
+    ``step`` (one graphed round or decode step): exactly one
+    ``cudaGraphLaunch`` and no kernel launch, copy or memset."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bench import HOST_LAUNCH_CALLS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    calls = {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                and e.name.startswith("cu")):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    launches = {k: v for k, v in calls.items()
+                if k.startswith(HOST_LAUNCH_CALLS) and k != "cudaGraphLaunch"}
+    check(calls.get("cudaGraphLaunch") == 1 and not launches,
+          f"a graphed step made these host calls: {calls}")
+    return calls
+
+
+def timed_runs(fn, reps):
+    """Wall seconds of ``reps`` calls of ``fn``, each between two device
+    synchronisations; the last call's result."""
     import torch
 
-    from repro_torch.core import engine
-    from repro_torch.core.types import PlatformModel
-    from repro_torch.kernels import ops
-
-    state = engine.init_state(cfg, ssd, wl, device=dev)
-    runner = engine.make_runner(cfg, ssd, wl, PlatformModel(), ROUNDS, dev)
-    runner(state)
-    torch.cuda.synchronize()
-    ops.reset_launches()
     walls = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = runner(state)
+        out = fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = dict(ops.LAUNCHES)
-    m = out.metrics
-    completed = float(m.completed)
-    return out, {
-        "virtual_miops": float(m.iops()) / 1e6,
-        "p50_us": float(m.p50_us()), "p99_us": float(m.p99_us()),
-        "completed_per_run": completed,
-        "wall_s_median": statistics.median(walls),
-        "emulated_requests_per_wall_s": completed / statistics.median(walls),
+    return out, walls
+
+
+def profile_summary(wall_ms, prof):
+    """One profiled run's figures a round (or step) beside the timed wall
+    ms: the profiler's own window (its wall ms, device ms and events, the
+    device's idle share in it, the host's launch calls) and the device ms
+    over the timed wall ms (the profiler slows the host, not the
+    device)."""
+    return {"profiled": {k: prof[k] for k in (
+                "wall_ms_per_round", "device_ms_per_round",
+                "device_events_per_round", "device_idle_share",
+                "host_calls_per_round")},
+            "device_ms_over_timed_wall": prof["device_ms_per_round"] / wall_ms}
+
+
+def speed(walls, completed, dev_prof):
+    """Per-round figures of one runner: the median timed run's wall ms a
+    round and emulated requests a wall-second, ``profile_summary`` and
+    the profiled device ms a round of each engine kernel."""
+    wall_ms = statistics.median(walls) * 1e3 / ROUNDS
+    return {"wall_ms_per_round": wall_ms,
+            "emulated_requests_per_wall_s":
+                completed / statistics.median(walls),
+            "wall_s_runs": walls, **profile_summary(wall_ms, dev_prof),
+            "engine_kernel_device_ms_per_round":
+                dev_prof["engine_kernel_device_ms_per_round"]}
+
+
+def graph_vs_eager(cfg, ssd, wl, plat, dev, reps=3):
+    """ROUNDS rounds from one initial state through the eager ``run`` and
+    through the graphed ``make_runner``, each warmed up once and then
+    timed ``reps`` times and profiled once; the final states must be
+    bit-identical on every leaf. Launch counts cover exactly the timed
+    runs of both; every engine kernel that the capture recorded must show
+    device time in the profiled graphed run. Also a ``donate=True`` chain of two calls against one
+    eager run of 2 * ROUNDS rounds, and the profiler's proof that a
+    graphed round is one graph launch. Returns the graphed final state
+    and the record."""
+    from repro_torch import convert
+    from repro_torch.bench import profiled
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+
+    state = engine.init_state(cfg, ssd, wl, device=dev)
+    init = convert.engine_state_to_numpy(state)
+    runner = engine.make_runner(cfg, ssd, wl, plat, ROUNDS, device=dev)
+
+    def eager():
+        return engine.run(state, cfg, ssd, wl, plat, ROUNDS)
+
+    eager()
+    runner(state)  # the eager warm round and the capture
+    ops.reset_launches()
+    e_out, e_walls = timed_runs(eager, reps)
+    launches_eager = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    g_out, g_walls = timed_runs(lambda: runner(state), reps)
+    launches_graph = dict(ops.LAUNCHES)
+    e_np = convert.engine_state_to_numpy(e_out)
+    g_np = convert.engine_state_to_numpy(g_out)
+    diff = convert.leaf_differences(e_np, g_np)
+    check(not diff, f"graphed and eager states differ in {diff}")
+    check(not convert.leaf_differences(
+        init, convert.engine_state_to_numpy(state)),
+        "make_runner(donate=False) changed its input state")
+    e_prof, g_prof = profiled(eager, ROUNDS), profiled(
+        lambda: runner(state), ROUNDS)
+    ran = g_prof["engine_kernel_device_ms_per_round"]
+    idle = [k for k in ran if runner.graph.launches[k] and not ran[k] > 0]
+    check(not idle, f"{idle} are in the graph but took no device time in "
+                    f"a graphed run: {ran}")
+
+    donating = engine.make_runner(cfg, ssd, wl, plat, ROUNDS, donate=True,
+                                  device=dev)
+    chained = donating(donating(engine.unalias(state)))
+    twice = engine.run(state, cfg, ssd, wl, plat, 2 * ROUNDS)
+    chain_diff = convert.leaf_differences(
+        convert.engine_state_to_numpy(twice),
+        convert.engine_state_to_numpy(chained))
+    check(not chain_diff, f"two donated calls differ from one run of "
+                          f"{2 * ROUNDS} rounds in {chain_diff}")
+
+    one = engine.make_runner(cfg, ssd, wl, plat, 1, donate=True, device=dev)
+    kept = one(engine.unalias(state))
+    calls = graph_proof(lambda: one(kept))
+    completed = float(g_out.metrics.completed)
+    rec = {
+        "eager": speed(e_walls, completed, e_prof),
+        "graph": speed(g_walls, completed, g_prof),
+        "graph_vs_eager_differing_leaves": diff,
+        "donate_chain_vs_run_differing_leaves": chain_diff,
+        "graphed_round_host_calls": calls,
+        "launches_per_graph": runner.graph.launches,
+        "launches_eager": launches_eager, "launches_graph": launches_graph,
+        "launches": {k: launches_eager[k] + launches_graph[k]
+                     for k in launches_eager},
         "rounds_per_run": ROUNDS, "timed_runs": reps,
-        "launches": launches,
     }
+    return g_out, rec
+
+
+def drive(cfg, ssd, wl, dev, path):
+    """The main path through both runners (``graph_vs_eager``), with the
+    virtual numbers that must equal the recorded ones (``VIRTUAL``)."""
+    from repro_torch.core.types import PlatformModel
+
+    out, rec = graph_vs_eager(cfg, ssd, wl, PlatformModel(), dev)
+    m = out.metrics
+    virtual = {"virtual_miops": float(m.iops()) / 1e6,
+               "p50_us": float(m.p50_us()), "p99_us": float(m.p99_us())}
+    want = VIRTUAL[path]
+    check(all(virtual[k] == v for k, v in want.items()),
+          f"virtual numbers {virtual} are not the recorded {want}")
+    return out, {**virtual, "completed_per_run": float(m.completed), **rec}
 
 
 def check_outputs(state, cfg):
@@ -755,10 +901,11 @@ def phase_main_read(dev, card):
         emulate_data=True, use_pallas=True, use_pallas_segscan=True,
         use_pallas_reap=True,
     )
-    state, rec = drive(cfg, ssd, WorkloadConfig(io_depth=256), dev)
+    state, rec = drive(cfg, ssd, WorkloadConfig(io_depth=256), dev, "read")
     check_outputs(state, cfg)
     for k in ("seg_scan", "fused_reap", "block_gather"):
         check(rec["launches"][k] > 0, f"{k} did not launch on the main path")
+        check(rec["launches_graph"][k] > 0, f"{k} is not in the graph")
     emit({"phase": "main_path_read", "card": card, **rec})
     return rec["launches"]
 
@@ -769,10 +916,12 @@ def phase_main_mixed(dev, card):
 
     cfg, ssd = local_1drive(emulate_data=True, **KERNEL_FLAGS)
     wl = MixedReadWrite(read_frac=0.7, io_depth=256)
-    state, rec = drive(cfg, ssd, wl, dev)
+    state, rec = drive(cfg, ssd, wl, dev, "mixed")
     check_outputs(state, cfg)
     check(rec["launches"]["die_contention"] > 0,
           "die_contention did not launch on the main path")
+    check(rec["launches_graph"]["die_contention"] > 0,
+          "die_contention is not in the graph")
     check(float(state.device.flash.valid_pages) > 0, "no write was priced")
     emit({"phase": "main_path_mixed", "card": card, **rec})
     return rec["launches"]
@@ -808,22 +957,27 @@ def run_states(cfg, ssd, plat, wl, dev, rounds):
     from repro_torch.core import engine
 
     st = engine.init_state(cfg, ssd, wl, device=dev)
-    st = engine.make_runner(cfg, ssd, wl, plat, rounds, dev)(st)
+    st = engine.make_runner(cfg, ssd, wl, plat, rounds, device=dev)(st)
     return convert.engine_state_to_numpy(st)
 
 
 def phase_exact(dev, card):
-    from repro_torch.convert import leaf_differences
+    """Kernels off and on, each through the graphed and the eager runner:
+    four bit-identical final states."""
+    from repro_torch.convert import engine_state_to_numpy, leaf_differences
     from repro_torch.workloads import MixedReadWrite
 
     cfg, ssd, plat = exact_setup()
     wl = MixedReadWrite(read_frac=0.7, io_depth=256)
-    off = run_states(cfg, ssd, plat, wl, dev, ROUNDS)
-    on = run_states(cfg.replace(**KERNEL_FLAGS), ssd, plat, wl, dev, ROUNDS)
-    diff = leaf_differences(off, on)
+    off, rec_off = graph_vs_eager(cfg, ssd, wl, plat, dev, reps=1)
+    on, rec_on = graph_vs_eager(cfg.replace(**KERNEL_FLAGS), ssd, wl,
+                                   plat, dev, reps=1)
+    off = engine_state_to_numpy(off)
+    diff = leaf_differences(off, engine_state_to_numpy(on))
     emit({"phase": "exact", "card": card, "rounds": ROUNDS,
           "leaves": len(off), "differing_leaves": diff,
-          "completed": float(off["metrics.completed"])})
+          "completed": float(off["metrics.completed"]),
+          "kernels_off": rec_off, "kernels_on": rec_on})
     check(not diff, f"kernels on/off states differ in {diff}")
 
 
@@ -867,6 +1021,7 @@ TIER_REFERENCE = {
 TIER_REL_TOL = 1e-5
 LOGIT_REL_BOUND = 0.05      # max |diff| <= 0.05 * max |logits|, per step
 LOGIT_MIN_COSINE = 0.999    # cosine of the two runs' logits, per step
+LEFT_BYTES_BOUND = 64 << 20  # device bytes a serving phase may leave behind
 
 
 def phase_serve_tier(dev, card):
@@ -882,6 +1037,8 @@ def phase_serve_tier(dev, card):
     from repro_torch.serving import kv_tier
     from repro_torch.serving import loop as serve_loop
 
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
     cfg, params, tokens, ssd, scfg = serve.setup(
         "starcoder2-3b", iops=40e6, device=str(dev))
     cfg = cfg.replace(use_pallas=True)
@@ -915,24 +1072,47 @@ def phase_serve_tier(dev, card):
     check(reap_launches["fused_reap"] > 0, "fused_reap did not launch")
     stats = {k: out[k] for k in reap}
     check(reap == stats, f"fused_reap changed the tier: {reap} vs {stats}")
+    prefill_s, decode_s = out["prefill_s"], out["wall_s"]
+    first_row = toks[0].tolist()
+    del params, tokens, out, toks
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated(dev) - held
     emit({"phase": "serve_tier", "card": card, "arch": cfg.name,
           "stats": stats, "rel_to_reference": rel,
-          "tokens_first_row": toks[0].tolist(),
-          "prefill_s": out["prefill_s"], "decode_wall_s": out["wall_s"],
+          "tokens_first_row": first_row,
+          "prefill_s": prefill_s, "decode_wall_s": decode_s,
           "wall_s_total": wall, "launches": launches,
-          "reap_run_launches": reap_launches, "reap_run_identical": True})
-    del params, out
+          "reap_run_launches": reap_launches, "reap_run_identical": True,
+          "allocated_bytes_left_after_phase": left})
+    # The phase's weights alone are 6 GB. What may outlive it: the
+    # capture stream's cuBLAS workspace (32 MiB, once a process) and the
+    # engine's cached device constants (kilobytes).
+    check(left <= LEFT_BYTES_BOUND,
+          f"serve_tier left {left} bytes allocated on the card")
     torch.cuda.empty_cache()
     return {k: launches[k] + reap_launches[k] for k in launches}
 
 
-def phase_serve_long(dev, card, batch=8, prompt=4096, gen=128):
+def phase_serve_long(dev, card, batch=8, prompt=4096, gen=128,
+                     prof_steps=8):
     """generate at full width (batch 8, prompt 4096, 128 tokens: cache
-    4224) with the kernels on, timed; then the plain path teacher-forced
-    on the kernel run's tokens, logits compared at the prefill and every
-    decode step."""
+    4224) with the kernels on, its decode step a CUDA graph (each
+    generate runs its first step eagerly, captures, then replays), run
+    twice, the second timed; peak device memory over the first. The same
+    decode as an eager loop of ``transformer.decode_step`` from the same
+    prefill, timed: the tokens must be equal and the logits bit-identical
+    at every step (were they not, the phase names the first step that
+    differs and holds both to the plain path's rule below). Then a
+    ``DecodeStep`` of the phase's own on those caches: its first step and
+    capture, then 126 replays, timed, which must give generate's tokens.
+    Device ms a step of the eager and the graphed step from a profiler
+    window of ``prof_steps`` steps, and the profiler's proof that a
+    graphed step is one graph launch. Then the plain path, teacher-forced
+    on the kernel run's tokens, must agree on the prefill's and every
+    decode step's logits."""
     import torch
 
+    from repro_torch.bench import profiled
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import transformer
@@ -942,6 +1122,7 @@ def phase_serve_long(dev, card, batch=8, prompt=4096, gen=128):
         "starcoder2-3b", batch=batch, prompt=prompt, gen=gen, iops=40e6,
         device=str(dev))
     kern_cfg = cfg.replace(use_pallas=True)
+    cache_len = prompt + gen
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
@@ -952,13 +1133,79 @@ def phase_serve_long(dev, card, batch=8, prompt=4096, gen=128):
     check(launches["flash_attention"] == cfg.n_layers
           and launches["decode_attention"] == cfg.n_layers * (gen - 1),
           f"unexpected launch counts {launches}")
+    again = serve_loop.generate(kern_cfg, params, tokens, scfg)
+    check(bool(torch.equal(again["tokens"], out["tokens"])),
+          "a second graphed generate gave other tokens")
+
+    # The eager decode loop from the same prefill.
+    with torch.no_grad():
+        logits, caches = transformer.prefill(params, kern_cfg, tokens,
+                                             cache_len=cache_len)
+        positions = torch.arange(cache_len, dtype=torch.int32, device=dev)
+        toks, kept = [torch.argmax(logits, dim=-1).to(torch.int32)], [logits]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            lg, _ = transformer.decode_step(params, kern_cfg, toks[-1],
+                                            caches, positions[prompt + i])
+            toks.append(torch.argmax(lg, dim=-1).to(torch.int32))
+            kept.append(lg)
+        torch.cuda.synchronize()
+        eager_wall = time.perf_counter() - t0
+    check(bool(torch.equal(torch.stack(toks, dim=1), out["tokens"])),
+          "graphed and eager decode gave other tokens")
+    same = [bitwise_equal(a, b) for a, b in zip(kept, out["logits"])]
+    first_diff = None if all(same) else same.index(False)
+    graph_vs_eager = {"logits_bit_identical_steps": sum(same),
+                      "steps": len(same), "first_differing_step": first_diff}
+    if first_diff is not None:
+        rel = max(float((a - b).abs().max() / a.abs().max())
+                  for a, b in zip(kept, out["logits"]))
+        cos = min(float(torch.nn.functional.cosine_similarity(
+            a.reshape(1, -1).double(), b.reshape(1, -1).double()))
+            for a, b in zip(kept, out["logits"]))
+        graph_vs_eager.update(worst_max_abs_over_max_logit=rel,
+                              worst_cosine=cos)
+        check(rel <= LOGIT_REL_BOUND and cos >= LOGIT_MIN_COSINE,
+              f"graphed and eager logits disagree: {graph_vs_eager}")
+
+    with torch.no_grad():
+        def eager_steps():
+            for i in range(prof_steps):
+                transformer.decode_step(params, kern_cfg, toks[i], caches,
+                                        positions[prompt + i])
+
+        eager_prof = profiled(eager_steps, prof_steps)
+        # The graphed step on the same caches: the eager first step and
+        # the capture, then the remaining gen - 2 steps as replays, timed.
+        step = serve_loop.DecodeStep(kern_cfg, params, caches, batch,
+                                     cache_len, dev)
+        step.start(toks[0], prompt)
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(gen - 2):
+            step()
+        torch.cuda.synchronize()
+        graph_wall = time.perf_counter() - t0
+        check(bool(torch.equal(step.tokens[:, prompt:], out["tokens"])),
+              "replays of the phase's own graphed step gave other tokens")
+        step.start(toks[0], prompt)
+
+        def graph_steps():
+            for _ in range(prof_steps):
+                step()
+
+        graph_prof = profiled(graph_steps, prof_steps)
+        step.start(toks[0], prompt)
+        calls = graph_proof(step)
 
     plain_cfg = cfg.replace(use_pallas=False)
     toks = out["tokens"]
     worst_rel, worst_cos, steps = 0.0, 1.0, []
     with torch.no_grad():
         logits, caches = transformer.prefill(params, plain_cfg, tokens,
-                                             cache_len=prompt + gen)
+                                             cache_len=cache_len)
         for i in range(gen):
             if i:
                 logits, caches = transformer.decode_step(
@@ -973,14 +1220,24 @@ def phase_serve_long(dev, card, batch=8, prompt=4096, gen=128):
             steps.append((rel, cos, row_cos))
             worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
     ok = worst_rel <= LOGIT_REL_BOUND and worst_cos >= LOGIT_MIN_COSINE
-    prefill_ms = out["prefill_s"] * 1e3
-    decode_ms = out["wall_s"] * 1e3 / (gen - 1)
+    prefill_ms = again["prefill_s"] * 1e3
+    decode_ms = again["wall_s"] * 1e3 / (gen - 1)
+
+    def per_step(wall_ms, prof):
+        return {"wall_ms_per_step": wall_ms,
+                **profile_summary(wall_ms, prof)}
+
     emit({"phase": "serve_long", "card": card, "arch": cfg.name,
           "batch": batch, "prompt": prompt, "gen": gen,
           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+          "graph": per_step(graph_wall * 1e3 / (gen - 2), graph_prof),
+          "eager": per_step(eager_wall * 1e3 / (gen - 1), eager_prof),
+          "graph_vs_eager": graph_vs_eager,
+          "graphed_step_host_calls": calls,
+          "launches_per_graph": step.graph.launches,
           "generated_tokens_per_wall_s":
-              batch * gen / (out["prefill_s"] + out["wall_s"]),
-          "decode_tokens_per_wall_s": batch * (gen - 1) / out["wall_s"],
+              batch * gen / (again["prefill_s"] + again["wall_s"]),
+          "decode_tokens_per_wall_s": batch * (gen - 1) / again["wall_s"],
           "max_memory_allocated_bytes": peak, "launches": launches,
           "bound": {"max_abs_over_max_logit": LOGIT_REL_BOUND,
                     "min_cosine": LOGIT_MIN_COSINE},
@@ -991,7 +1248,7 @@ def phase_serve_long(dev, card, batch=8, prompt=4096, gen=128):
           "tokens_first_row_head": toks[0, :16].tolist()})
     check(ok, f"plain and kernel logits disagree: max rel {worst_rel}, "
               f"min cosine {worst_cos}")
-    del params, out, caches
+    del params, out, again, caches, step
     torch.cuda.empty_cache()
     return launches
 

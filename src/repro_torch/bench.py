@@ -9,22 +9,27 @@ DSA datapath) on ``FUTURE_40M`` (40e6 IOPS, 512 instances, 16384 blocks).
     python -m repro_torch.bench [--rounds 24] [--mixed] [--plain] [--trace PATH]
     python -m repro_torch.bench --serve [--steps 16] [--trace PATH]
 
-The first runs the drive read-only with the kernel flags on, once to warm
-up and once under ``torch.profiler``; ``--mixed`` runs it under the 70/30
-read/write mix instead (``MixedReadWrite(read_frac=0.7)``,
-``chip_smoke.py``'s ``main_path_mixed``) with ``use_pallas_flash`` on as
-well, so that the rounds also price writes on the dies through
-``die_contention``; ``--plain`` turns every kernel flag off, so that the
-rounds run the scans on ``segops.associative_scan``.
-``--serve`` profiles the serving decode step instead:
-starcoder2-3b at full width with the attention kernels on, batch 8 after
-a 4096-token prompt (``chip_smoke.py``'s ``serve_long``), ``--steps``
-decode steps after one warm-up step. Each prints one JSON line: wall and
+The first runs the drive read-only with the kernel flags on and profiles
+two runners from one initial state: the eager ``engine.run`` and the
+runner of ``engine.make_runner`` (a CUDA graph of one round, replayed once
+a round), each once to warm up and once under ``torch.profiler``.
+``--mixed`` runs the drive under the 70/30 read/write mix instead
+(``MixedReadWrite(read_frac=0.7)``, ``chip_smoke.py``'s
+``main_path_mixed``) with ``use_pallas_flash`` on as well, so that the
+rounds also price writes on the dies through ``die_contention``;
+``--plain`` turns every kernel flag off, so that the rounds run the scans
+on ``segops.associative_scan``. ``--serve`` profiles the serving decode
+step instead: starcoder2-3b at full width with the attention kernels on,
+batch 8 after a 4096-token prompt (``chip_smoke.py``'s ``serve_long``),
+``--steps`` steps of the eager ``transformer.decode_step`` loop and of
+the captured ``serving.loop.DecodeStep``, each after one warm-up step.
+Each prints one JSON line holding, for each runner or step: wall and
 device kernel time per round (or step), the device's idle share, device
-events (kernels and copies) and memcpy calls per round, the host-device
-synchronisations in the window, the ops with the most device time, and
-the device time per round of each of the port's engine kernels. It
-needs a card.
+events (kernels and copies), memcpy calls and the host's launch calls
+(``cudaLaunchKernel``, ``cudaGraphLaunch``, ...) per round, the
+host-device synchronisations in the window, the ops with the most device
+time, and the device time per round of each of the port's engine kernels.
+It needs a card.
 """
 from __future__ import annotations
 
@@ -56,6 +61,10 @@ def local_1drive(**kw):
 
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaEventSynchronize")
+# Host API calls that put work on the device (names starting so), counted
+# per round or step.
+HOST_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cuLaunchKernel",
+                     "cudaLaunchKernelExC", "cudaMemcpy", "cudaMemset")
 
 # Device-side names of the engine kernels' CUDA functions, by kernel.
 _ENGINE_KERNELS = {
@@ -66,7 +75,7 @@ _ENGINE_KERNELS = {
 }
 
 
-def _profiled(fn, n: int, trace: "str | None") -> dict:
+def profiled(fn, n: int, trace: "str | None" = None) -> dict:
     """Run ``fn`` once under ``torch.profiler`` (after the caller's
     warm-up) and summarise it per each of its ``n`` rounds or steps."""
     from torch.profiler import ProfilerActivity, profile
@@ -79,15 +88,19 @@ def _profiled(fn, n: int, trace: "str | None") -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels, syncs, memcpys, by_name = [], 0, 0, {}
+    calls: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dur = e.time_range.end - e.time_range.start
             kernels.append(dur)
             by_name[e.name] = by_name.get(e.name, 0.0) + dur
-        elif e.name.startswith(_SYNC_CALLS):
+            continue
+        if e.name.startswith(_SYNC_CALLS):
             syncs += 1
         elif e.name.startswith("cudaMemcpy"):
             memcpys += 1
+        if e.name.startswith(HOST_LAUNCH_CALLS):
+            calls[e.name] = calls.get(e.name, 0) + 1
     if trace:
         prof.export_chrome_trace(trace)
     busy_us = float(sum(kernels))
@@ -110,6 +123,7 @@ def _profiled(fn, n: int, trace: "str | None") -> dict:
         # The window ends with one torch.cuda.synchronize() of its own.
         "host_syncs_in_window": syncs,
         "memcpy_calls_per_round": memcpys / n,
+        "host_calls_per_round": {k: v / n for k, v in calls.items()},
         "top_device_ms_per_round": {
             k[:80]: v / 1e3 / n for k, v in top
         },
@@ -130,37 +144,59 @@ def profile_rounds(rounds: int, trace: "str | None",
                             use_pallas_flash=mixed and on)
     wl = (MixedReadWrite(read_frac=0.7, io_depth=256) if mixed
           else WorkloadConfig(io_depth=256))
+    plat = PlatformModel()
     state = engine.init_state(cfg, ssd, wl, device=dev)
-    runner = engine.make_runner(cfg, ssd, wl, PlatformModel(), rounds, dev)
-    runner(state)
+    runner = engine.make_runner(cfg, ssd, wl, plat, rounds, device=dev)
+
+    def eager():
+        return engine.run(state, cfg, ssd, wl, plat, rounds)
+
+    out = {}
+    for name, fn in (("eager", eager), ("make_runner", lambda: runner(state))):
+        fn()
+        out[name] = profiled(fn, rounds, trace and f"{trace}.{name}.json")
     path = "mixed 70/30 rounds" if mixed else "read rounds"
-    return {"path": path + (", kernels off" if plain else ""),
-            **_profiled(lambda: runner(state), rounds, trace)}
+    return {"path": path + (", kernels off" if plain else ""), **out}
 
 
 def profile_decode(steps: int, trace: "str | None", batch: int = 8,
                    prompt: int = 4096) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import transformer
+    from repro_torch.serving import loop
 
+    dev = torch.device("cuda", 0)
+    cache_len = prompt + steps + 2
     cfg, params, tokens, _, _ = serve.setup(
         "starcoder2-3b", batch=batch, prompt=prompt, gen=steps + 2,
         device="cuda")
     cfg = cfg.replace(use_pallas=True)
+    positions = torch.arange(cache_len, dtype=torch.int32, device=dev)
+    out = {}
     with torch.no_grad():
         logits, caches = transformer.prefill(params, cfg, tokens,
-                                             cache_len=prompt + steps + 2)
+                                             cache_len=cache_len)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        transformer.decode_step(params, cfg, tok, caches, prompt)
+        transformer.decode_step(params, cfg, tok, caches, positions[prompt])
 
-        def run():
+        def eager():
             for i in range(steps):
                 transformer.decode_step(params, cfg, tok, caches,
-                                        prompt + 1 + i)
+                                        positions[prompt + 1 + i])
 
-        out = _profiled(run, steps, trace)
+        out["eager"] = profiled(eager, steps, trace and f"{trace}.eager.json")
+        step = loop.DecodeStep(cfg, params, caches, batch, cache_len, dev)
+        step.start(tok, prompt)
+        step()  # the eager first step, then the capture
+
+        def graphed():
+            for _ in range(steps):
+                step()
+
+        out["graph"] = profiled(graphed, steps,
+                                trace and f"{trace}.graph.json")
     return {"path": "serve decode step", "batch": batch,
-            "cache_len": prompt + steps + 2, **out}
+            "cache_len": cache_len, **out}
 
 
 def main() -> None:

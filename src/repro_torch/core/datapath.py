@@ -103,8 +103,7 @@ def baseline_worker_times(
     map_cost = torch.where(
         batch.valid, float(np.float32(plat.per_req_map_us)), 0.0
     )
-    heads0 = torch.zeros((n,), dtype=torch.bool, device=dev)
-    heads0[0] = True
+    heads0 = idx == 0
     seed0 = map_time.expand(n)
     mapped = queueing_scan(
         fetch_done, map_cost, heads0, seed0, use_pallas=pallas

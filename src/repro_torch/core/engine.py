@@ -5,11 +5,14 @@ shared ``DevicePipeline`` prices them (lock, timing model, data path,
 flash backend, CQ post and reap), the metrics and the functional block
 copies are updated, and the workload resubmits each completed slot.
 
-The port runs eagerly: ``run`` is a Python loop over rounds and
-``make_runner`` returns that loop with the configs bound. No round reads
-a value back to the host, so the work stays queued on the card. Entry
-points run on ``cuda`` unless the caller names a device, and raise when
-no card is present and none was named.
+``run`` is the eager body, a Python loop over rounds, as the reference's
+``run`` is the body that its ``make_runner`` compiles. On a card,
+``make_runner`` captures one ``engine_round`` into a CUDA graph
+(``repro_torch/cuda_graph.py``) at its first call and replays it once a
+round on static state buffers; on the CPU it runs the eager loop. No
+round reads a value back to the host. Entry points run on ``cuda`` unless
+the caller names a device, and raise when no card is present and none was
+named.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import cuda_graph
 from repro_torch.core import datapath, frontend, segops
 from repro_torch.core.device import DevicePipeline, DeviceState, check_ported
 from repro_torch.core.frontend import SQRings
@@ -352,15 +356,74 @@ def run(
     return state
 
 
+def unalias(state: EngineState) -> EngineState:
+    """Deep-copy every leaf, so that no two leaves share storage and none
+    shares it with ``state``: the copy may be handed to a donating runner
+    while ``state`` stays the caller's."""
+    return cuda_graph.map_leaves(torch.clone, state)
+
+
+class _GraphRunner:
+    """``rounds`` replays of one captured ``engine_round`` on static state
+    buffers (see ``make_runner``)."""
+
+    def __init__(self, cfg, ssd, wl, plat, rounds: int, donate: bool,
+                 device: torch.device):
+        self.args = (cfg, ssd, wl, plat)
+        self.rounds, self.donate = rounds, donate
+        self.device = cuda_graph.cuda_index(device)
+        self.static: "EngineState | None" = None
+        self.graph: "cuda_graph.Captured | None" = None
+
+    def _round(self) -> EngineState:
+        new = engine_round(self.static, *self.args)
+        cuda_graph.check_writeback(self.static, new)
+        cuda_graph.copy_into(self.static, new)
+        return new
+
+    def __call__(self, state: EngineState) -> EngineState:
+        if state.clock.device != self.device:
+            raise ValueError(
+                f"state is on {state.clock.device}, runner on {self.device}")
+        if self.graph is None:
+            self.static = unalias(state)
+            self.graph = cuda_graph.Captured(
+                self._round, self.device,
+                warm=lambda: engine_round(self.static, *self.args))
+        elif state is not self.static:
+            cuda_graph.copy_into(self.static, state)
+        self.graph.replay(self.rounds)
+        return self.static if self.donate else unalias(self.static)
+
+
 def make_runner(
     cfg: EngineConfig, ssd: SSDConfig, wl, plat: PlatformModel,
-    rounds: int, device: "torch.device | str | None" = None,
+    rounds: int, donate: bool = False,
+    device: "torch.device | str | None" = None,
 ) -> Callable[[EngineState], EngineState]:
     """The engine runner with static configs bound, for states on
-    ``device`` (``cuda`` unless named). Unported branches raise here."""
+    ``device`` (``cuda`` unless named). Unported branches raise here.
+
+    On a card the runner captures one ``engine_round`` into a CUDA graph
+    at its first call (after one eager warm round on the capture stream)
+    and replays it ``rounds`` times on static state buffers; a replay ends
+    by writing the new state into those buffers. A capture that fails
+    raises. ``donate=False`` copies the caller's state into the buffers,
+    leaves it unchanged and returns a copy of the result.
+    ``donate=True`` returns the buffers themselves; passing that result
+    back skips the copy in, and as in the reference the caller must not
+    reuse a donated input. Unlike the reference, a donated *result* is
+    valid only until the runner's next call, whatever state that call is
+    given: every call rewrites the same buffers, so ``x = r(a)`` followed
+    by ``r(b)`` turns ``x`` into ``r(b)``'s result (``unalias(x)`` keeps a
+    copy). On the CPU the runner is the eager loop, and ``donate`` only
+    permits that reuse.
+    """
     device = resolve_device(device)
     check_ported(cfg)
     wl = as_workload(wl)
+    if device.type == "cuda":
+        return _GraphRunner(cfg, ssd, wl, plat, rounds, donate, device)
 
     def runner(state: EngineState) -> EngineState:
         if state.clock.device.type != device.type:
@@ -396,4 +459,4 @@ def simulate(
     plat = plat or PlatformModel()
     device = resolve_device(device)
     state = init_state(cfg, ssd, wl, block_words, device=device)
-    return make_runner(cfg, ssd, wl, plat, rounds, device)(state)
+    return make_runner(cfg, ssd, wl, plat, rounds, device=device)(state)

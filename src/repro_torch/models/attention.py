@@ -133,34 +133,45 @@ def attention_prefill(
     return y, (k, v)
 
 
+def as_position(pos: "torch.Tensor | int", device) -> torch.Tensor:
+    """A decode position as the () int32 tensor that the decode path takes
+    (a host integer is copied to ``device``)."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.tensor(pos, dtype=torch.int32, device=device)
+
+
 def attention_decode(
     params: dict,
     x: torch.Tensor,                          # (B, 1, D)
     cache: Tuple[torch.Tensor, torch.Tensor],  # k, v: (B, Hkv, S_max, Dh)
-    pos: int,                                 # current position
+    pos: "torch.Tensor | int",                # () i32 current position
     cfg: ModelConfig,
     kind: str,
 ) -> "tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]":
     """One-token decode. The new k/v row is written into ``cache`` in
     place (the reference returns an updated copy); the same tensors are
-    returned. ``pos`` is a host integer: the decode loop knows it, and the
-    kernel branch reads the lengths from a device tensor built from it
-    without any read back from the card."""
+    returned. ``pos`` is a () int32 tensor on ``x``'s device, as the
+    reference's traced position is (a host integer is made into one): the
+    cache row, the rotary positions, the kernel's lengths and the local
+    window all come from it on the device, so a captured decode step
+    takes each new position from a buffer."""
     window, scale = _window_scale(cfg, kind)
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    pos = as_position(pos, x.device).reshape(1)
+    positions = pos.expand(b, 1)
     q, k_new, v_new = _project_qkv(params, x, cfg, positions)
     k_cache, v_cache = cache
-    k_cache[:, :, pos:pos + 1] = k_new
-    v_cache[:, :, pos:pos + 1] = v_new
+    row = pos.long()
+    k_cache.index_copy_(2, row, k_new)
+    v_cache.index_copy_(2, row, v_new)
     s_max = k_cache.shape[2]
     length = pos + 1
 
     if cfg.use_pallas:
-        lengths = torch.full((b,), length, dtype=torch.int32, device=x.device)
         o = kops.decode_attention(
-            q[:, :, 0], k_cache, v_cache, lengths, window=window,
-            logit_softcap=cfg.attn_softcap, scale=scale,
+            q[:, :, 0], k_cache, v_cache, length.expand(b).contiguous(),
+            window=window, logit_softcap=cfg.attn_softcap, scale=scale,
         )[:, :, None, :]
     else:
         hq, hkv = cfg.n_heads, cfg.n_kv_heads
@@ -171,11 +182,12 @@ def attention_decode(
         qg = (q.float() * scale).to(q.dtype)
         qg = qg.reshape(b, hkv, group, cfg.d_head)
         if window is not None and window < s_max:
-            # Local layers touch only the last `window` entries.
-            start = min(max(length - window, 0), s_max - window)
-            k_att = k_cache[:, :, start:start + window]
-            v_att = v_cache[:, :, start:start + window]
+            # Local layers touch only the last `window` entries: the
+            # reference's dynamic_slice, as a gather at a device index.
+            start = torch.clamp(length - window, 0, s_max - window)
             cols = start + torch.arange(window, device=x.device)
+            k_att = k_cache.index_select(2, cols)
+            v_att = v_cache.index_select(2, cols)
         else:
             k_att, v_att = k_cache, v_cache
             cols = torch.arange(s_max, device=x.device)

@@ -117,7 +117,7 @@ def block_prefill(p, x, cfg: ModelConfig, kind, positions, cache_len):
     return _finish(p, x, y, n1, cfg), cache
 
 
-def block_decode(p, x, cache, pos: int, cfg: ModelConfig, kind):
+def block_decode(p, x, cache, pos, cfg: ModelConfig, kind):
     """One-token decode step. Returns (x', cache) with ``cache`` written
     in place."""
     _check_ported(cfg, kind)
@@ -234,9 +234,13 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor, caches,
-                pos: int):
-    """One decode step of (B,) tokens at host position ``pos``. Returns
-    (logits (B, V), caches), the caches written in place."""
+                pos: "torch.Tensor | int"):
+    """One decode step of (B,) tokens at position ``pos``, a () int32
+    tensor on the tokens' device (a host integer is made into one).
+    Returns (logits (B, V), caches), the caches written in place. Nothing
+    in it reads a value back to the host, so ``serving/loop.py`` captures
+    it into a CUDA graph."""
+    pos = attn.as_position(pos, token.device)
     h = _embed_tokens(p, cfg, token)[:, None, :]
     period_caches, rem_caches = caches
     for lp, kind, i, j in _layers(p, cfg):

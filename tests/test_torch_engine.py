@@ -11,8 +11,20 @@ XLA's reduction order is not PyTorch's, so they are held to
 ``SUM_ULP``. Everything else is bit-exact — on the integer-timestamp
 drive with the kernel flags off and on, and on a stock-shaped drive with
 fractional costs.
+
+At the stock width of ``local_1drive`` (``benchmarks/common.py::
+swarmio_cfg()`` on ``FUTURE_40M``, closed loop at io_depth 256, 24
+rounds) the contract is stated per leaf below: every integer and bool
+leaf equal; the time leaves within ``TIME_ULP`` of the reference, whose
+compiled ``timing._sorted_batch_core`` contracts ``b + rank * sched``
+into a fused multiply-add (pinned per stage call on a shared state); the
+three global sums within ``SUM_ULP``; and the per-tenant sum within the
+error bound of recursive summation over its own terms, which the
+reference's ``segment_sum`` uses, while the port's fixed-order tree sum
+stays within a far tighter bound of the exact (float64) sum.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -20,12 +32,20 @@ import numpy as np
 import pytest
 import torch
 
+from benchmarks.common import FUTURE_40M, swarmio_cfg
 from repro.core import engine as je
+from repro.core import frontend as jf
+from repro.core import timing as jtiming
 from repro.core import types as jt
+from repro.core.device import DevicePipeline as JPipeline
 from repro.workloads import MixedReadWrite as JMixed
-from repro_torch import convert
+from repro_torch import convert, cuda_graph
+from repro_torch.bench import local_1drive
 from repro_torch.core import engine as te
+from repro_torch.core import frontend as tf
+from repro_torch.core import timing as ttiming
 from repro_torch.core import types as tt
+from repro_torch.core.device import DevicePipeline as TPipeline
 from repro_torch.workloads import MixedReadWrite as TMixed
 
 SMALL = dict(num_sqs=8, sq_depth=64, fetch_width=16)
@@ -44,6 +64,10 @@ INT_PLAT = dict(
 )
 FLAGS = dict(use_pallas=True, use_pallas_segscan=True, use_pallas_reap=True,
              use_pallas_flash=True)
+EPS32 = 2.0 ** -24          # float32 unit roundoff
+TIME_ULP = 1                # stock-width time leaves: the reference's FMA
+STOCK_ROUNDS = 24
+STOCK_SUMS = ("metrics.sum_e2e", "metrics.sum_target", "metrics.sum_proc")
 
 
 def jleaves(state):
@@ -232,3 +256,218 @@ def test_metrics_of_a_port_run():
     assert float(m.p50_us()) <= float(m.p95_us()) <= float(m.p99_us())
     assert float(te.aggregate_iops(state)) == float(m.iops()) > 0
     assert dataclasses.is_dataclass(state)
+
+
+# -- the compiled runner's contract: unalias and donate ----------------------
+
+def _small_state(wl):
+    (_, _, _), (ct, st, pt) = both(SMALL, {}, {})
+    return (ct, st, pt), te.init_state(ct, st, wl, device="cpu")
+
+
+def test_unalias_leaves_share_no_storage():
+    """Every leaf of ``unalias``'s copy has storage of its own (no two
+    leaves, and no leaf and the original, share a data pointer) and the
+    original's value, dtype and shape."""
+    _, state = _small_state(tt.WorkloadConfig(io_depth=16))
+    copy = te.unalias(state)
+    old = convert.engine_state_to_numpy(state)
+    new = convert.engine_state_to_numpy(copy)
+    assert sorted(old) == sorted(new) and not convert.leaf_differences(old,
+                                                                       new)
+    ptrs = [t.untyped_storage().data_ptr()
+            for st in (state, copy) for t in _leaves(st)]
+    assert len(set(ptrs)) == len(ptrs)
+
+
+def _leaves(state):
+    out = []
+    cuda_graph.map_leaves(out.append, state)
+    return out
+
+
+def test_donated_runner_equals_undonated_and_spares_its_input():
+    (ct, st, pt), state = _small_state(MIXED_T)
+    before = convert.engine_state_to_numpy(state)
+    kept = te.make_runner(ct, st, MIXED_T, pt, 4, device="cpu")(state)
+    assert not convert.leaf_differences(
+        before, convert.engine_state_to_numpy(state))
+    donated = te.make_runner(ct, st, MIXED_T, pt, 4, donate=True,
+                             device="cpu")(te.unalias(state))
+    assert not convert.leaf_differences(convert.engine_state_to_numpy(kept),
+                                        convert.engine_state_to_numpy(donated))
+
+
+def test_chained_donated_calls_equal_one_run_of_twice_the_rounds():
+    (ct, st, pt), state = _small_state(MIXED_T)
+    runner = te.make_runner(ct, st, MIXED_T, pt, 3, donate=True,
+                            device="cpu")
+    chained = runner(runner(te.unalias(state)))
+    whole = te.run(state, ct, st, MIXED_T, pt, 6)
+    assert not convert.leaf_differences(convert.engine_state_to_numpy(whole),
+                                        convert.engine_state_to_numpy(chained))
+
+
+MIXED_J = JMixed(io_depth=16, read_frac=0.7)
+MIXED_T = TMixed(io_depth=16, read_frac=0.7)
+
+
+def test_donated_runner_matches_reference_donated_runner():
+    """The reference's ``make_runner(donate=True)`` fed through its
+    ``unalias``, against the port's, two chained calls each."""
+    (cj, sj, pj), (ct, st, pt) = both(SMALL, {}, {})
+    jr = je.make_runner(cj, sj, MIXED_J, pj, 3, donate=True)
+    ref = jr(jr(je.unalias(je.init_state(cj, sj, MIXED_J))))
+    tr = te.make_runner(ct, st, MIXED_T, pt, 3, donate=True, device="cpu")
+    out = tr(tr(te.unalias(te.init_state(ct, st, MIXED_T, device="cpu"))))
+    assert float(out.metrics.completed) > 0
+    assert not convert.leaf_differences(
+        jleaves(ref), convert.engine_state_to_numpy(out), SUM_BOUNDS)
+
+
+# -- the first milestone at stock width ---------------------------------------
+
+STOCK_WORKLOADS = {
+    "read": (jt.WorkloadConfig(io_depth=256), tt.WorkloadConfig(io_depth=256)),
+    "mixed_70_30": (JMixed(read_frac=0.7, io_depth=256),
+                    TMixed(read_frac=0.7, io_depth=256)),
+}
+_STOCK_RUNS: dict = {}
+
+
+def _stock_run(name):
+    """The stock ``local_1drive`` for 24 rounds in both packages (run once
+    a workload per test process), with the terms the port's per-tenant
+    sum added each round: (reference leaves, port leaves, terms (M,)
+    float64, their tenants (M,))."""
+    if name not in _STOCK_RUNS:
+        wj, wt = STOCK_WORKLOADS[name]
+        cj = swarmio_cfg()
+        ref = je.make_runner(cj, FUTURE_40M, wj, jt.PlatformModel(),
+                             STOCK_ROUNDS)(je.init_state(cj, FUTURE_40M, wj))
+        ct, st = local_1drive()
+        terms = []
+        group_sum = te._group_sum
+
+        def recording(vals, seg, k):
+            terms.append((vals.double(), seg))
+            return group_sum(vals, seg, k)
+
+        te._group_sum = recording
+        try:
+            out = te.simulate(ct, st, wt, tt.PlatformModel(),
+                              rounds=STOCK_ROUNDS, device="cpu")
+        finally:
+            te._group_sum = group_sum
+        _STOCK_RUNS[name] = (
+            jleaves(ref), convert.engine_state_to_numpy(out),
+            torch.cat([v for v, _ in terms]).numpy(),
+            torch.cat([s for _, s in terms]).numpy())
+    return _STOCK_RUNS[name]
+
+
+@pytest.mark.parametrize("name", sorted(STOCK_WORKLOADS))
+def test_stock_local_1drive_matches_reference(name):
+    """The first milestone: ``simulate`` on the stock ``local_1drive``
+    against the reference's final state, leaf by leaf (see the module
+    docstring for the bounds)."""
+    ref, out, _, _ = _stock_run(name)
+    assert ref["metrics.completed"] > 10000
+    floats = [k for k in ref if ref[k].dtype.kind == "f"]
+    bounds = {k: TIME_ULP for k in floats}
+    bounds.update({k: SUM_ULP for k in STOCK_SUMS})
+    bounds.pop("metrics.tenant_sum_e2e")  # test_stock_tenant_sum_e2e_bound
+    ref = {k: v for k, v in ref.items() if k != "metrics.tenant_sum_e2e"}
+    out = {k: v for k, v in out.items() if k != "metrics.tenant_sum_e2e"}
+    assert not convert.leaf_differences(ref, out, bounds)
+
+
+@pytest.mark.parametrize("name", sorted(STOCK_WORKLOADS))
+def test_stock_tenant_sum_e2e_bound(name):
+    """``metrics.tenant_sum_e2e`` at stock width. The reference's
+    ``segment_sum`` adds a tenant's terms one by one in row order, whose
+    error is at most ``(n - 1) * eps * sum|e2e|`` over the n nonzero terms;
+    both packages must lie within that of the exact float64 sum. The
+    port's fixed-order tree sum (each round a masked row sum, then one
+    addition a round) must lie within ``(rounds + ceil(log2 rows)) * eps *
+    sum|e2e|``, far tighter, which shows the port to be the accurate
+    side."""
+    ref, out, terms, tenants = _stock_run(name)
+    rows = terms.shape[0] // STOCK_ROUNDS
+    for t in range(out["metrics.tenant_sum_e2e"].shape[0]):
+        e = terms[tenants == t]
+        exact, mag = float(e.sum()), float(np.abs(e).sum())
+        n = int(np.count_nonzero(e))
+        recursive = (n - 1) * EPS32 * mag
+        tree = (STOCK_ROUNDS + math.ceil(math.log2(rows))) * EPS32 * mag
+        got_ref = float(ref["metrics.tenant_sum_e2e"][t])
+        got_port = float(out["metrics.tenant_sum_e2e"][t])
+        assert n == int(out["metrics.tenant_completed"][t]) > 0
+        assert abs(got_ref - exact) <= recursive, (got_ref, exact, recursive)
+        assert abs(got_port - exact) <= recursive
+        assert abs(got_port - exact) <= tree, (got_port, exact, tree)
+
+
+def _round_one_inputs():
+    """The reference's stock ``local_1drive`` state after one compiled
+    round, fetched for round two by both packages: the shared state on
+    which the first 1-ULP time difference appears."""
+    cj, wj = swarmio_cfg(), jt.WorkloadConfig(io_depth=256)
+    pj = jt.PlatformModel()
+    s = jax.jit(lambda s: je.engine_round(s, cj, FUTURE_40M, wj, pj))(
+        je.init_state(cj, FUTURE_40M, wj))
+    ct, st = local_1drive()
+    pt = tt.PlatformModel()
+    ts = convert.engine_state_from_numpy(jleaves(s), "cpu")
+    jfetch = jax.jit(lambda s: jf.fetch(s.rings, s.clock, s.device.disp_time,
+                                        cj, pj))(s)
+    tfetch = tf.fetch(ts.rings, ts.clock, ts.device.disp_time, ct, pt)
+    return (cj, pj, s, jfetch), (ct, st, pt, ts, tfetch)
+
+
+def test_stock_time_ulp_comes_from_timing_contraction():
+    """Per stage call on a shared state: the reference's compiled
+    pipeline and the port's agree bit for bit on every stage's output but
+    the timing model's completions (``target``), which the compiled
+    ``timing._sorted_batch_core`` puts at most ``TIME_ULP`` away by fusing
+    ``b + rank * sched`` (and ``s_arr - rank * sched``) into one FMA; the
+    reference run eagerly equals the port there bit for bit. Everything
+    downstream (``done``, ``reaped``, the CQ rings, the resubmission
+    times) inherits that ULP."""
+    (cj, pj, s, jfetch), (ct, st, pt, ts, tfetch) = _round_one_inputs()
+    np.testing.assert_array_equal(np.asarray(jfetch[3]), tfetch[3].numpy())
+    jpipe, tpipe = JPipeline(cj, FUTURE_40M, pj), TPipeline(ct, st, pt)
+    jdev = dataclasses.replace(s.device, disp_time=jfetch[1])
+    tdev = dataclasses.replace(ts.device, disp_time=tfetch[1])
+    junit, tunit = jf.fetch_row_units(cj), tf.fetch_row_units(ct, "cpu")
+    jres = jax.jit(lambda d, b, f, q: jpipe.process(
+        d, b, f, junit, q, ring_layout=True)[2])(jdev, jfetch[2], jfetch[3],
+                                                 s.cq)
+    tres = tpipe.process(tdev, tfetch[2], tfetch[3], tunit, ts.cq,
+                         ring_layout=True)[2]
+    for f in ("arrival", "ready", "flash_done"):
+        np.testing.assert_array_equal(np.asarray(getattr(jres, f)),
+                                      getattr(tres, f).numpy(), f)
+    for f in ("target", "done", "reaped"):
+        a, b = np.asarray(getattr(jres, f)), getattr(tres, f).numpy()
+        assert convert.ulp_distance(a, b) <= TIME_ULP, f
+
+    jbatch = dataclasses.replace(jfetch[2], arrival=jres.arrival)
+    tbatch = dataclasses.replace(tfetch[2], arrival=tres.arrival)
+
+    def jupdate(t, b):
+        return jtiming.update(t, b, FUTURE_40M, cj.mode,
+                              use_compaction=cj.use_compaction)
+
+    jit_busy, jit_target = jax.jit(jupdate)(s.device.tstate, jbatch)
+    with jax.disable_jit():
+        eager_busy, eager_target = jupdate(s.device.tstate, jbatch)
+    t_state, t_target = ttiming.update(ts.device.tstate, tbatch, st, ct.mode,
+                                       use_compaction=ct.use_compaction)
+    np.testing.assert_array_equal(np.asarray(eager_target), t_target.numpy())
+    np.testing.assert_array_equal(np.asarray(eager_busy.busy_until),
+                                  t_state.busy_until.numpy())
+    np.testing.assert_array_equal(np.asarray(jit_target), np.asarray(
+        jres.target))
+    assert convert.ulp_distance(np.asarray(jit_target),
+                                t_target.numpy()) == TIME_ULP

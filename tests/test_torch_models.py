@@ -21,6 +21,7 @@ from repro.models import layers as jlayers
 from repro.models import transformer as jtr
 from repro.serving import loop as jloop
 from repro_torch import configs, convert
+from repro_torch.kernels import ref as kref
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import loop
@@ -158,6 +159,75 @@ def test_attention_prefill_and_decode_match_reference(arch, use_pallas,
     np.testing.assert_allclose(k1t.numpy(), np.asarray(r["k1"]), **LAYER_TOL)
 
 
+def _host_slicing_decode(params, x, cache, pos: int, cfg, kind):
+    """The decode attention as the port computed it with a host-integer
+    position before the position became a device tensor: the cache row
+    written by slicing, the lengths filled from the integer, a local
+    layer's window sliced at a host start."""
+    window, scale = attention._window_scale(cfg, kind)
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32)
+    q, k_new, v_new = attention._project_qkv(params, x, cfg, positions)
+    k_cache, v_cache = cache
+    k_cache[:, :, pos:pos + 1] = k_new
+    v_cache[:, :, pos:pos + 1] = v_new
+    s_max, length = k_cache.shape[2], pos + 1
+    if cfg.use_pallas:
+        o = kref.decode_attention_ref(
+            q[:, :, 0], k_cache, v_cache,
+            torch.full((b,), length, dtype=torch.int32), window=window,
+            logit_softcap=cfg.attn_softcap, scale=scale)[:, :, None, :]
+        return attention._out_proj(params, o, cfg), (k_cache, v_cache)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    qg = (q.float() * scale).to(q.dtype).reshape(b, hkv, hq // hkv,
+                                                 cfg.d_head)
+    if window is not None and window < s_max:
+        start = min(max(length - window, 0), s_max - window)
+        k_att = k_cache[:, :, start:start + window]
+        v_att = v_cache[:, :, start:start + window]
+        cols = start + torch.arange(window)
+    else:
+        k_att, v_att = k_cache, v_cache
+        cols = torch.arange(s_max)
+    logits = torch.matmul(qg.float(), k_att.float().transpose(-1, -2))
+    if cfg.attn_softcap is not None:
+        logits = layers.softcap(logits, cfg.attn_softcap)
+    mask = cols < length
+    if window is not None:
+        mask &= cols > length - 1 - window
+    p = torch.softmax(torch.where(mask, logits, attention.NEG), dim=-1)
+    o = torch.matmul(p.to(v_att.dtype).float(), v_att.float())
+    o = o.reshape(b, hq, 1, cfg.d_head).to(x.dtype)
+    return attention._out_proj(params, o, cfg), (k_cache, v_cache)
+
+
+@pytest.mark.parametrize("kind", ["attn_local", "attn"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_attention_decode_device_position_equals_host_slicing(kind,
+                                                              use_pallas):
+    """gemma2's smoke layers (window 32, cache 80): at positions before,
+    at and past the window's slide, the device-tensor position gives the
+    host-integer computation's output and cache bit for bit."""
+    _, tcfg = smoke("gemma2-27b", use_pallas)
+    assert kind in tcfg.pattern
+    p, _ = jattn.attn_init(jax.random.PRNGKey(1), smoke("gemma2-27b")[0],
+                           jnp.float32)
+    pt = {k: t(np.asarray(v)) for k, v in p.items()}
+    rng = np.random.default_rng(9)
+    shape = (2, tcfg.n_kv_heads, 80, tcfg.d_head)
+    for pos in (5, 31, 32, 64, 79):
+        k0 = rng.standard_normal(shape).astype(np.float32)
+        v0 = rng.standard_normal(shape).astype(np.float32)
+        x = t(rng.standard_normal((2, 1, tcfg.d_model)).astype(np.float32))
+        want, (wk, wv) = _host_slicing_decode(pt, x, (t(k0), t(v0)), pos,
+                                              tcfg, kind)
+        got, (gk, gv) = attention.attention_decode(
+            pt, x, (t(k0), t(v0)), torch.tensor(pos, dtype=torch.int32),
+            tcfg, kind)
+        for w, g in ((want, got), (wk, gk), (wv, gv)):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
 # -- whole model -------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -191,8 +261,11 @@ def model_ref():
 
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("use_pallas", [False, True])
-def test_prefill_and_decode_steps_match_reference(arch, use_pallas,
+@pytest.mark.parametrize("position", ["host_int", "device_tensor"])
+def test_prefill_and_decode_steps_match_reference(arch, use_pallas, position,
                                                   model_ref):
+    """Decode positions as host integers and as () int32 tensors (the
+    reference's traced ``jnp.int32``, what the captured step reads)."""
     jp, toks, want, want_caches = model_ref(arch)
     _, tcfg = smoke(arch, use_pallas)
     tp = convert.model_params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
@@ -202,7 +275,9 @@ def test_prefill_and_decode_steps_match_reference(arch, use_pallas,
     np.testing.assert_allclose(tl.numpy(), want[0], **LOGIT_TOL)
     for i in range(3):
         tok = np.argmax(want[i], -1).astype(np.int32)
-        tl, tc = transformer.decode_step(tp, tcfg, t(tok), tc, s + i)
+        pos = (s + i if position == "host_int"
+               else torch.tensor(s + i, dtype=torch.int32))
+        tl, tc = transformer.decode_step(tp, tcfg, t(tok), tc, pos)
         np.testing.assert_allclose(tl.numpy(), want[i + 1], **LOGIT_TOL)
     got_caches = jax.tree.leaves(
         tc, is_leaf=lambda x: isinstance(x, torch.Tensor))
@@ -303,3 +378,28 @@ def test_converter_carries_bf16_bit_for_bit():
     assert emb.dtype == torch.bfloat16
     np.testing.assert_array_equal(emb.view(torch.int16).numpy(),
                                   tree["embed"].view(np.int16))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_equals_a_loop_of_decode_steps(arch):
+    """``generate``'s ``DecodeStep`` (token and position in buffers, the
+    argmax inside the step) against a plain loop of
+    ``transformer.decode_step`` at host positions: the same tokens and
+    bit-identical logits at every step."""
+    jcfg, tcfg = smoke(arch)
+    _, tp = params_for(jcfg, tcfg, seed=10)
+    toks = t(np.random.default_rng(11).integers(0, jcfg.vocab, (2, 16))
+             .astype(np.int32))
+    scfg = loop.ServeConfig(batch=2, prompt_len=16, gen_tokens=6)
+    got = loop.generate(tcfg, tp, toks, scfg, keep_logits=True)
+    logits, caches = transformer.prefill(tp, tcfg, toks, cache_len=22)
+    out, kept = [torch.argmax(logits, -1).to(torch.int32)], [logits]
+    for i in range(5):
+        logits, caches = transformer.decode_step(tp, tcfg, out[-1], caches,
+                                                 16 + i)
+        out.append(torch.argmax(logits, -1).to(torch.int32))
+        kept.append(logits)
+    np.testing.assert_array_equal(got["tokens"].numpy(),
+                                  torch.stack(out, 1).numpy())
+    for w, g in zip(kept, got["logits"]):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
