@@ -1,12 +1,18 @@
-"""The paper's 40-MIOPS drive for the port, and profiles of its rounds and
-of the serving decode step.
+"""The paper's 40-MIOPS drive for the port, under SwarmIO and under the
+NVMeVirt baseline, and profiles of its rounds and of the serving decode
+step.
 
 ``local_1drive`` is ``benchmarks/emulator_speed.py``'s configuration of
 that name: ``benchmarks/common.py::swarmio_cfg()`` (32 SQs x 1024, fetch
 width 256, 16 service units, aggregated timing, coalesced DSA fetch,
 DSA datapath) on ``FUTURE_40M`` (40e6 IOPS, 512 instances, 16384 blocks).
+``nvmevirt_1drive`` is ``benchmarks/common.py::nvmevirt_cfg()`` (32 SQs x
+1024, fetch width 64, one dispatcher over all SQs, one entry a
+transaction, per-request timing and lock, 32 CPU copy workers) on the
+same drive.
 
-    python -m repro_torch.bench [--rounds 24] [--mixed] [--plain] [--trace PATH]
+    python -m repro_torch.bench [--rounds 24] [--mixed] [--plain] [--baseline]
+                                [--trace PATH]
     python -m repro_torch.bench --serve [--steps 16] [--trace PATH]
 
 The first runs the drive read-only with the kernel flags on and profiles
@@ -18,9 +24,12 @@ a round), each once to warm up and once under ``torch.profiler``.
 ``main_path_mixed``) with ``use_pallas_flash`` on as well, so that the
 rounds also price writes on the dies through ``die_contention``;
 ``--plain`` turns every kernel flag off, so that the rounds run the scans
-on ``segops.associative_scan``. ``--serve`` profiles the serving decode
-step instead: starcoder2-3b at full width with the attention kernels on,
-batch 8 after a 4096-token prompt (``chip_smoke.py``'s ``serve_long``),
+on ``segops.associative_scan``; ``--baseline`` runs ``nvmevirt_1drive``
+instead (``chip_smoke.py``'s ``main_path_baseline``: the per-request fold on
+``die_contention`` and the baseline datapath's scans). ``--serve`` profiles the
+serving decode step instead: starcoder2-3b at full width with the
+attention kernels on, batch 8 after a 4096-token prompt
+(``chip_smoke.py``'s ``serve_long``),
 ``--steps`` steps of the eager ``transformer.decode_step`` loop and of
 the captured ``serving.loop.DecodeStep``, each after one warm-up step.
 Each prints one JSON line holding, for each runner or step: wall and
@@ -44,6 +53,24 @@ from repro_torch.core.types import EngineConfig, SSDConfig
 
 FUTURE_40M = SSDConfig(name="future-40m", t_max_iops=40e6, l_min_us=30.0,
                        n_instances=512, num_blocks=1 << 14)
+
+
+D7_PS1010 = SSDConfig(t_max_iops=2.47e6, l_min_us=50.0, n_instances=64,
+                      num_blocks=1 << 14)
+
+
+def nvmevirt_1drive(**kw):
+    """(EngineConfig, SSDConfig) of the NVMeVirt baseline on ``FUTURE_40M``
+    (``benchmarks/common.py::nvmevirt_cfg``); ``kw`` overrides
+    EngineConfig fields."""
+    base = dict(
+        num_sqs=32, sq_depth=1024, fetch_width=64, num_units=1,
+        workers_per_unit=32, frontend="centralized", mode="per_request",
+        coalesced=False, dsa_fetch=False, batched_datapath=False,
+        emulate_data=False, num_bufs=1 << 10,
+    )
+    base.update(kw)
+    return EngineConfig(**base), FUTURE_40M
 
 
 def local_1drive(**kw):
@@ -131,17 +158,20 @@ def profiled(fn, n: int, trace: "str | None" = None) -> dict:
     }
 
 
-def profile_rounds(rounds: int, trace: "str | None",
-                   mixed: bool = False, plain: bool = False) -> dict:
+def profile_rounds(rounds: int, trace: "str | None", mixed: bool = False,
+                   plain: bool = False, baseline: bool = False) -> dict:
     from repro_torch.core import engine
     from repro_torch.core.types import PlatformModel, WorkloadConfig
     from repro_torch.workloads import MixedReadWrite
 
     dev = torch.device("cuda", 0)
     on = not plain
-    cfg, ssd = local_1drive(emulate_data=True, use_pallas=on,
-                            use_pallas_segscan=on, use_pallas_reap=on,
-                            use_pallas_flash=mixed and on)
+    flags = dict(use_pallas=on, use_pallas_segscan=on, use_pallas_reap=on)
+    if baseline:
+        cfg, ssd = nvmevirt_1drive(use_pallas_flash=on, **flags)
+    else:
+        cfg, ssd = local_1drive(emulate_data=True,
+                                use_pallas_flash=mixed and on, **flags)
     wl = (MixedReadWrite(read_frac=0.7, io_depth=256) if mixed
           else WorkloadConfig(io_depth=256))
     plat = PlatformModel()
@@ -156,6 +186,8 @@ def profile_rounds(rounds: int, trace: "str | None",
         fn()
         out[name] = profiled(fn, rounds, trace and f"{trace}.{name}.json")
     path = "mixed 70/30 rounds" if mixed else "read rounds"
+    if baseline:
+        path = "NVMeVirt baseline " + path
     return {"path": path + (", kernels off" if plain else ""), **out}
 
 
@@ -208,6 +240,8 @@ def main() -> None:
                     help="profile rounds of the 70/30 read/write mix")
     ap.add_argument("--plain", action="store_true",
                     help="rounds with every kernel flag off")
+    ap.add_argument("--baseline", action="store_true",
+                    help="profile rounds of the NVMeVirt baseline")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace here")
@@ -217,7 +251,8 @@ def main() -> None:
     if args.serve:
         res = profile_decode(args.steps, args.trace)
     else:
-        res = profile_rounds(args.rounds, args.trace, args.mixed, args.plain)
+        res = profile_rounds(args.rounds, args.trace, args.mixed, args.plain,
+                             args.baseline)
     print(json.dumps(res), flush=True)
 
 

@@ -8,8 +8,10 @@
     stage 4   the flash backend (writes, GC, mapping misses)
     stage 5   posting to the CQ paired with each SQ and reaping (``qp``)
 
-This slice ports the local-drive branch in program lock order. The
-branches it does not port are rejected when the pipeline is built — never
+This slice ports the local-drive branch in program lock order, under
+both timing modes (aggregated and the per-request baseline) and both
+frontends (distributed and the centralized baseline). The branches it
+does not port are rejected when the pipeline is built — never
 at run time — each with the ROADMAP item that will bring it.
 """
 from __future__ import annotations
@@ -92,13 +94,17 @@ def acquire_lock(
     """Serialize service units on the global timing-model lock, in unit
     index (program) order: ``done_u = max(t, ready_u) + cost_u``, folded
     unit by unit exactly as the reference's sequential scan. The cost is
-    per batch (aggregated mode). Returns ``(lock_time', lock_done (U,),
+    per request (the per-request baseline: every request takes the lock)
+    or per batch (aggregated mode). Returns ``(lock_time', lock_done (U,),
     None)`` — no acquisition permutation in program order."""
     n_valid_u = epoch.unit_counts(num_units)
     batch_ready = epoch.unit_ready(num_units)
-    cost = torch.where(
-        n_valid_u > 0, float(np.float32(plat.lock_per_batch_us)), 0.0
-    )
+    if cfg.mode == "per_request":
+        cost = n_valid_u.to(F32) * float(np.float32(plat.lock_per_req_us))
+    else:
+        cost = torch.where(
+            n_valid_u > 0, float(np.float32(plat.lock_per_batch_us)), 0.0
+        )
     t = lock_time
     grants = []
     for u in range(num_units):
@@ -108,8 +114,6 @@ def acquire_lock(
 
 
 _UNPORTED = (
-    (lambda c: c.mode == "per_request", "mode='per_request'", "A3"),
-    (lambda c: c.frontend == "centralized", "frontend='centralized'", "A5"),
     (lambda c: c.timing_scope == "local", "timing_scope='local'", "A3"),
     (lambda c: c.lock_order == "ready_time", "lock_order='ready_time'", "A4"),
     (lambda c: c.fabric.remote, "fabric.remote", "A12"),

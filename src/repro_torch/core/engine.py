@@ -91,12 +91,22 @@ def hist_percentile(hist: torch.Tensor, q: float) -> torch.Tensor:
     return HIST_LO_US * torch.pow(10.0, expo)
 
 
+def _sum(vals: torch.Tensor) -> torch.Tensor:
+    """A round's float32 latency sum, accumulated in double and rounded
+    once. The n terms are latencies (not negative), so any order of
+    double additions lands within n * 2^-53 of the exact sum, relative
+    (2^-40 at ``local_1drive``'s 8192 rows); the card (a tree) and the
+    CPU (another order) then round to the same float32 unless the exact
+    sum lies that close to a float32 rounding midpoint."""
+    return torch.sum(vals, dtype=torch.float64).to(F32)
+
+
 def _group_sum(vals: torch.Tensor, seg: torch.Tensor, k: int) -> torch.Tensor:
-    """Per-group float sum with one fixed reduction order on every run
-    (a masked row sum — no atomics, whose order varies on the card)."""
+    """Per-group float sum as ``_sum`` (a masked row sum — no atomics,
+    whose order varies on the card)."""
     groups = torch.arange(k, dtype=seg.dtype, device=seg.device)
     return torch.where(seg[None, :] == groups[:, None], vals[None, :],
-                       0.0).sum(dim=1)
+                       0.0).sum(dim=1, dtype=torch.float64).to(F32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +142,12 @@ class Metrics:
 
     def avg_e2e_us(self) -> torch.Tensor:
         return self.sum_e2e / torch.clamp(self.completed, min=1.0)
+
+    def avg_target_us(self) -> torch.Tensor:
+        return self.sum_target / torch.clamp(self.completed, min=1.0)
+
+    def avg_proc_us(self) -> torch.Tensor:
+        return self.sum_proc / torch.clamp(self.completed, min=1.0)
 
     def p50_us(self) -> torch.Tensor:
         return hist_percentile(self.lat_hist, 0.50)
@@ -281,9 +297,9 @@ def engine_round(
     metrics = Metrics(
         completed=m.completed + nvalid,
         fetched=m.fetched + nvalid,
-        sum_e2e=m.sum_e2e + torch.sum(e2e),
-        sum_target=m.sum_target + torch.sum(tgt_lat),
-        sum_proc=m.sum_proc + torch.sum(proc),
+        sum_e2e=m.sum_e2e + _sum(e2e),
+        sum_target=m.sum_target + _sum(tgt_lat),
+        sum_proc=m.sum_proc + _sum(proc),
         last_completion=torch.maximum(
             m.last_completion, torch.amax(torch.where(valid, done, 0.0))
         ),

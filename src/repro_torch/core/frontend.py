@@ -4,10 +4,10 @@
 SQ entries live in contiguous ring buffers, so a coalesced fetch of n
 entries is one bulk transfer costing ``txn_base + n*sqe_bytes/bw``. The
 *distributed* frontend partitions the SQs across service units and
-fetches all units' SQs in parallel. ``submit`` and ``deal_sqs`` post a
-flat application batch (``core/client.py``). The centralized NVMeVirt
-baseline is not ported (ROADMAP A5); ``DevicePipeline`` rejects it when
-built.
+fetches all units' SQs in parallel; the *centralized* NVMeVirt baseline
+has one dispatcher that serializes over all SQs, one entry a transaction.
+``submit`` and ``deal_sqs`` post a flat application batch
+(``core/client.py``).
 """
 from __future__ import annotations
 
@@ -241,6 +241,40 @@ def fetch_distributed(
     return rings, disp_time, batch, fetch_done
 
 
+def fetch_centralized(
+    rings: SQRings,
+    clock: torch.Tensor,         # () f32
+    disp_time: torch.Tensor,     # (1,) f32
+    cfg: EngineConfig,
+    plat: PlatformModel,
+) -> Tuple[SQRings, torch.Tensor, RequestBatch, torch.Tensor]:
+    """NVMeVirt baseline: ONE dispatcher serializes over all SQs, one
+    entry a transaction (no coalescing), draining each SQ before the
+    next. Every multiply and add rounds on its own (the reference's CPU
+    compile may fuse ``nf * per_entry + poll`` and ``sq_base + (j + 1) *
+    per_entry`` into FMAs)."""
+    f = cfg.fetch_width
+
+    avail = rings.tail - rings.head
+    visible = _visible_count(rings, clock, f)
+    nfetch = torch.clamp(torch.minimum(avail, visible), max=f)
+    nfetch = torch.where(disp_time[0] <= clock, nfetch, 0)  # self-pacing
+
+    per_entry = _per_entry_cost(cfg, plat)
+    cost = nfetch.to(F32) * per_entry + plat.doorbell_poll_us
+    cum = seq_cumsum(cost, 0)
+    start = torch.maximum(disp_time[0], clock)
+    sq_base = start + cum - cost                                    # (Q,)
+    disp_time = (start + cum[-1])[None]
+
+    batch, _ = _gather_entries(rings, nfetch, f)
+    # Entry j of SQ q completes fetching at base_q + (j+1)*per_entry.
+    j1 = torch.arange(1, f + 1, dtype=F32, device=nfetch.device)[None, :]
+    fetch_done = (sq_base[:, None] + j1 * per_entry).reshape(-1)
+    rings = dataclasses.replace(rings, head=rings.head + nfetch)
+    return rings, disp_time, batch, fetch_done
+
+
 def fetch(
     rings: SQRings,
     clock: torch.Tensor,
@@ -248,12 +282,11 @@ def fetch(
     cfg: EngineConfig,
     plat: PlatformModel,
 ) -> Tuple[SQRings, torch.Tensor, RequestBatch, torch.Tensor]:
-    """The single fetch entry point of ``engine_round``."""
+    """The single fetch entry point of ``engine_round`` and
+    ``StorageClient``."""
     if cfg.frontend == "distributed":
         return fetch_distributed(rings, clock, disp_time, cfg, plat)
-    raise NotImplementedError(
-        "frontend='centralized' is not ported (ROADMAP A5)"
-    )
+    return fetch_centralized(rings, clock, disp_time, cfg, plat)
 
 
 def deal_sqs(n: int, cfg: EngineConfig, device) -> torch.Tensor:

@@ -60,21 +60,37 @@ def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
-def seq_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Float cumsum accumulated left to right in the tensor's own dtype.
+_CUMSUM_CHUNK = 16  # XLA's chunk for a long cumulative sum
 
-    ``jnp.cumsum`` on the CPU sums a short axis (up to 128 elements) in
-    that order, while ``torch.cumsum`` accumulates float32 in double on the
-    CPU and in a parallel tree on the card. For the short per-unit axes
-    the engine sums (SQs per service unit) a loop keeps the reference's
-    rounding on both devices.
+
+def seq_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Float cumsum in ``jnp.cumsum``'s order on the CPU, in the tensor's
+    own dtype, on both devices.
+
+    XLA rewrites the cumulative sum of an axis longer than 16 into chunks
+    of 16: each chunk is summed left to right, the chunks' totals are
+    cumsummed the same way (recursively), and each chunk's elements then
+    add the exclusive sum of the chunks before it. An axis of up to 16
+    elements is summed left to right. (``torch.cumsum`` accumulates
+    float32 in double on the CPU and in a parallel tree on the card.)
     """
     x = x.movedim(dim, 0)
-    out = torch.empty_like(x)
-    out[0] = x[0]
-    for j in range(1, x.shape[0]):
-        out[j] = out[j - 1] + x[j]
-    return out.movedim(0, dim)
+    n = x.shape[0]
+    if n <= _CUMSUM_CHUNK:
+        out = torch.empty_like(x)
+        out[0] = x[0]
+        for j in range(1, n):
+            out[j] = out[j - 1] + x[j]
+        return out.movedim(0, dim)
+    m = -(-n // _CUMSUM_CHUNK)
+    rest = tuple(x.shape[1:])
+    pad = x.new_zeros((m * _CUMSUM_CHUNK - n,) + rest)
+    chunks = torch.cat([x, pad]).reshape((m, _CUMSUM_CHUNK) + rest)
+    within = seq_cumsum(chunks, 1)
+    totals = seq_cumsum(within[:, -1], 0)
+    before = torch.cat([x.new_zeros((1,) + rest), totals[:-1]])
+    out = (within + before[:, None]).reshape((m * _CUMSUM_CHUNK,) + rest)
+    return out[:n].movedim(0, dim)
 
 
 def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -380,9 +396,13 @@ def queueing_scan_via_segmax(
     """``queueing_scan`` reduced to one segmented prefix max:
     ``busy_j = S_j + max_{i <= j, same segment} (a_i - S_i)`` with
     ``S = cumsum(cost)``. Exact against the reference scan when costs are
-    integer-valued (the cumsum's association is then irrelevant)."""
+    integer-valued (the cumsum's association is then irrelevant). ``S`` is
+    accumulated in double and rounded once a row: for the engine's costs
+    every double partial sum is exact, so the card (whose float32 cumsum
+    is a tree) gives the CPU's numbers (whose float32 cumsum accumulates
+    in double)."""
     a = _seeded(ready, cost, heads, seed)
-    s = torch.cumsum(cost.to(F32), 0, dtype=F32)
+    s = torch.cumsum(cost.to(torch.float64), 0).to(F32)
     return s + segmax_fn(a - s, heads)
 
 

@@ -7,6 +7,11 @@ For request i in dispatch order on instance k:
     busy[k]      = start_i + Sched
     completion_i = max(start_i + Sched, arrival_i + L_min)
 
+``per_request_update`` (the NVMeVirt baseline) runs the recurrence one
+request after another in dispatch order. Instances never read each
+other's cursor, so it is ``die_contention``'s fold with ``cost = Sched``
+(one instance's chain in row order, all instances at once), plus the
+completion's max with ``arrival + L_min``.
 ``aggregated_update`` computes this for a whole fetched batch with one
 segmented (max,+) prefix scan and a single write of the shared state,
 through the closed form
@@ -29,6 +34,7 @@ import torch
 from repro_torch.core.segops import (
     NEG,
     compact_epoch,
+    jax_max,
     segment_max,
     segment_sum,
     segmented_prefix_max,
@@ -71,6 +77,39 @@ def assign_instances(
     if ssd.routing == "lba_hash":
         return lba_hash_instance(batch.lba, k), state.rr
     return assign_rr(state.rr, batch.valid, k)
+
+
+def per_request_fold(
+    arrival: torch.Tensor,  # (N,) f32 dispatch-order arrivals
+    inst: torch.Tensor,     # (N,) i32 instance per row, in [0, K)
+    valid: torch.Tensor,    # (N,) bool
+    busy: torch.Tensor,     # (K,) f32 instance busy-until cursors
+    sched: float,
+    lmin: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's scan step row by row: ``start = max(arrival,
+    busy[k])``; a valid row sets ``busy[k] = start + sched`` and completes
+    at ``max(start + sched, arrival + lmin)``, an invalid row completes at
+    0 and leaves ``busy`` as it is. Returns (completion, busy')."""
+    from repro_torch.kernels import ops as kops
+
+    end, busy = kops.die_contention(
+        arrival, torch.full_like(arrival, sched), inst, valid, busy
+    )
+    return torch.where(valid, jax_max(end, arrival + lmin), 0.0), busy
+
+
+def per_request_update(
+    state: TimingState, batch: RequestBatch, ssd: SSDConfig
+) -> Tuple[TimingState, torch.Tensor]:
+    """Sequential per-request timing updates (the reference's
+    ``lax.scan``). Returns (state', completion)."""
+    inst, rr = assign_instances(state, batch, ssd)
+    completion, busy = per_request_fold(
+        batch.arrival, inst, batch.valid, state.busy_until,
+        f32(ssd.sched_us), f32(ssd.l_min_us),
+    )
+    return TimingState(busy, rr), completion
 
 
 def _sorted_batch_core(
@@ -199,8 +238,6 @@ def update(
     ``dispatch_order`` is an optional (N,) row permutation giving the
     order requests enter the shared timing state: the batch is gathered
     through it, priced, and completions scatter back (data movement only).
-    Only the aggregated mode is ported; the per-request baseline is
-    rejected when the pipeline is built (``DevicePipeline``).
     """
     if dispatch_order is not None:
         d = dispatch_order.long()
@@ -212,8 +249,8 @@ def update(
         )
         state, comp_p = update(state, permuted, ssd, mode, use_compaction)
         return state, unsort(comp_p, dispatch_order)
+    if mode == "per_request":
+        return per_request_update(state, batch, ssd)
     if mode == "aggregated":
         return aggregated_update(state, batch, ssd, use_compaction)
-    raise NotImplementedError(
-        f"timing mode {mode!r} is not ported (ROADMAP A3)"
-    )
+    raise ValueError(f"unknown timing mode: {mode}")

@@ -1,9 +1,10 @@
 """Tiled batched block copy on the card (port of
 ``repro/kernels/block_gather.py::block_gather_tiled``).
 
-``block_gather_tiled`` launches ``csrc/block_gather_tiled.cu``, one CTA per
-tile of ``tile`` copy descriptors (16-byte vector copies where the row
-width allows, bytes otherwise), on CUDA tensors of any dtype. Nothing on
+``block_gather_tiled`` launches ``csrc/block_gather_tiled.cu`` once on CUDA
+tensors of any dtype: ``block_gather``'s lanes-a-row layout (16-byte
+vector copies where the row width allows, bytes otherwise), each CTA
+owning a whole number of tiles of ``tile`` copy descriptors. Nothing on
 the port's paths calls it, as nothing in the reference calls its
 original. Its plain version is ``kernels/ref.py::block_gather_tiled_ref``;
 ``kernels/ops.py`` chooses between them by the tensor's device.

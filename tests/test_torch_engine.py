@@ -224,7 +224,6 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="per_request"), dict(frontend="centralized"),
     dict(timing_scope="local"), dict(lock_order="ready_time"),
     dict(fabric=tt.FabricConfig(remote=True)),
     dict(cache=tt.CacheConfig(enabled=True)),

@@ -284,3 +284,16 @@ def test_true_div_and_seq_cumsum():
     x = np.random.default_rng(9).uniform(0, 1e5, (5, 9)).astype(np.float32)
     same(j(x) / 30000.0, ts.true_div(t(x), 30000.0))
     same(jnp.cumsum(j(x), axis=1), ts.seq_cumsum(t(x), 1))
+
+
+@pytest.mark.parametrize("n", [1, 2, 16, 17, 32, 100, 257, 300, 4100])
+def test_seq_cumsum_takes_jnp_cumsum_order_on_long_axes(n):
+    """Past 16 elements XLA sums an axis in chunks of 16 (each left to
+    right, then the chunks' exclusive totals, recursively), which a left
+    to right sum misses by several ULP at 32 elements: bit-exact on a
+    1-D axis (the centralized fetch's 32 SQs) and on a middle axis."""
+    rng = np.random.default_rng(n)
+    x = rng.uniform(0, 20, n).astype(np.float32)
+    same(jnp.cumsum(j(x)), ts.seq_cumsum(t(x), 0))
+    y = rng.uniform(-5, 20, (3, n, 2)).astype(np.float32)
+    same(jnp.cumsum(j(y), axis=1), ts.seq_cumsum(t(y), 1))
