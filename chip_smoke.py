@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then
-runs nine phases, printing one JSON line each:
+runs eleven phases, printing one JSON line each:
 
   env              nvidia-smi's card name and power limit, torch/CUDA
                    versions, kernel build seconds
@@ -52,7 +52,29 @@ runs nine phases, printing one JSON line each:
                    states
   cpu_vs_card      stock local_1drive, kernels off, on the card and on the
                    CPU: integer leaves equal, float leaves within a stated
-                   ULP bound
+                   ULP bound; the same for 8 rounds of the Zipf loop under
+                   lba_hash and of the Poisson loop at fig 18's size; Zipf
+                   addresses and Poisson gaps of 2^20 request ids and the
+                   vector search at n = 1024 (its kNN graph included) bit
+                   for bit
+  vector_search    fig 16 at its own size (n = 4096, width 4, batches 4,
+                   16, 64 and 256 at 2.5e6 and 40e6 IOPS), each search's
+                   24 iterations replaying one captured iteration: QPS,
+                   recall, virtual us, wall and device ms an iteration,
+                   the 40e6-over-2.5e6 QPS ratio per batch; at batch 256,
+                   40e6 the eager search bit-identical to the graphed one,
+                   a write-back, and the kernel flags on (seg_scan,
+                   fused_reap and die_contention launching) bit-identical
+                   to the flags off
+  workloads        figs 18-20 at full size (fig 18's four generators at
+                   depth 1024 for 64 rounds on D7_PS1010, fig 19's four
+                   read/write mixes and fig 20's fresh and steady-state
+                   drives at depth 64 for 192 rounds) and a two-tenant
+                   loop on local_1drive, each graphed through
+                   make_runner: virtual MIOPS, p50/p95/p99, GC count, wall
+                   and device ms a round; the final state against the CPU
+                   port's, and again with the kernel flags on,
+                   bit-identical
   serve_tier       ``python -m repro_torch.launch.serve --arch starcoder2-3b
                    --iops 40e6``'s objects at full width (batch 4, prompt
                    32, 16 tokens) with the attention kernels on: generate
@@ -133,6 +155,13 @@ def nvidia_smi() -> str:
 
 KERNEL_FLAGS = dict(use_pallas=True, use_pallas_segscan=True,
                     use_pallas_reap=True, use_pallas_flash=True)
+# main_path_read's flags: with use_pallas_flash off the flash stage's
+# queueing scans run on seg_scan (with it on, that fold is die_contention
+# and seg_scan has no caller on the DSA datapath). On reads these flags
+# leave every result as it is with the flags off; where writes reach the
+# flash stage their segmax scan re-associates fractional sums.
+READ_FLAGS = dict(use_pallas=True, use_pallas_segscan=True,
+                  use_pallas_reap=True)
 
 
 # -- timing helpers -----------------------------------------------------------
@@ -1146,23 +1175,400 @@ SUM_LEAVES = ("metrics.sum_e2e", "metrics.sum_target", "metrics.sum_proc",
 
 
 def phase_cpu_vs_card(dev, card, rounds=8):
-    from repro_torch.bench import local_1drive
+    """Card against CPU, both the port: stock local_1drive (kernels off),
+    then the new streams (``stream_differences``), an 8-round Zipf run
+    under ``lba_hash`` and an 8-round Poisson run at fig 18's size, and
+    the vector search (``search_card_vs_cpu``)."""
+    from repro_torch import workloads as tw
+    from repro_torch.bench import D7_PS1010, local_1drive
     from repro_torch.convert import leaf_differences, ulp_distance
     from repro_torch.core.types import PlatformModel, WorkloadConfig
 
     cfg, ssd = local_1drive()
-    wl = WorkloadConfig(io_depth=256)
-    gpu = run_states(cfg, ssd, PlatformModel(), wl, dev, rounds)
-    cpu = run_states(cfg, ssd, PlatformModel(), wl, "cpu", rounds)
     bounds = dict.fromkeys(SUM_LEAVES, SUM_LEAF_ULP)
-    bad = leaf_differences(cpu, gpu, bounds)
-    worst = {k: ulp_distance(cpu[k], gpu[k]) for k in cpu
-             if cpu[k].dtype.kind == "f"}
+    runs = {
+        "local_1drive": (ssd, WorkloadConfig(io_depth=256)),
+        "zipf_0.9_lba_hash": (D7_PS1010.replace(routing="lba_hash"),
+                              tw.ZipfClosedLoop(io_depth=1024, theta=0.9)),
+        "poisson_open": (D7_PS1010, tw.PoissonOpenLoop(
+            io_depth=1024, rate_iops=D7_PS1010.t_max_iops * 0.8)),
+    }
+    bad, worst = {}, {}
+    for name, (ssd_r, wl) in runs.items():
+        gpu = run_states(cfg, ssd_r, PlatformModel(), wl, dev, rounds)
+        cpu = run_states(cfg, ssd_r, PlatformModel(), wl, "cpu", rounds)
+        bad[name] = leaf_differences(cpu, gpu, bounds)
+        worst[name] = {k: ulp_distance(cpu[k], gpu[k]) for k in cpu
+                       if cpu[k].dtype.kind == "f"
+                       and ulp_distance(cpu[k], gpu[k])}
+    streams = stream_differences(dev)
+    search = search_card_vs_cpu(dev)
     emit({"phase": "cpu_vs_card", "card": card, "rounds": rounds,
           "ulp_bound": {"metric sums": SUM_LEAF_ULP, "other floats": 0},
-          "max_ulp": {k: v for k, v in worst.items() if v},
-          "violations": bad})
-    check(not bad, f"card and CPU states differ: {bad}")
+          "max_ulp": worst, "violations": bad,
+          "stream_ids": 1 << 20, "stream_differing": streams,
+          "search_differing": search})
+    check(not any(bad.values()), f"card and CPU states differ: {bad}")
+    check(not any(streams.values()), f"card and CPU streams differ: "
+                                     f"{streams}")
+    check(not any(search.values()), f"card and CPU searches differ: "
+                                    f"{search}")
+
+
+# -- phases: the vector-search case study and the workload generators --------
+
+VS_N = 4096                  # fig 16's index (benchmarks/figures.py:268)
+VS_BATCHES = (4, 16, 64, 256)
+VS_IOPS = (2.5e6, 40e6)
+SEARCH_LEAVES = ("indices", "distances")
+SEARCH_NUMBERS = ("virtual_us", "qps", "avg_iter_us", "writeback_us")
+
+
+def search_differences(a, b):
+    """Keys on which two search results differ (tensors bit for bit)."""
+    out = [k for k in SEARCH_LEAVES
+           if not bitwise_equal(a[k].cpu(), b[k].cpu())]
+    return out + [k for k in SEARCH_NUMBERS if a[k] != b[k]]
+
+
+def search_numbers(out):
+    return {k: out[k] for k in SEARCH_NUMBERS + ("recall", "gpu_iter_us",
+                                                   "reads_per_iter")
+            if k in out}
+
+
+def phase_vector_search(dev, card):
+    """Fig 16 at its own size (n = 4096, width 4, batches 4-256, 2.5e6 and
+    40e6 IOPS), each cell through one ``vector_search.make_search``
+    object, graphed (its one captured iteration replayed 24 times a
+    search, the first search capturing it): qps, recall, virtual us, wall
+    and device ms an iteration, and the 40e6-over-2.5e6 QPS ratio per
+    batch. Then at batch 256, 40e6: the eager run bit-identical to the
+    graphed one; write-back once; and, with the counts reset just before
+    and read just after, the search with ``READ_FLAGS`` and the
+    write-back with every kernel flag on, each bit-identical to its run
+    with the flags off (seg_scan, fused_reap and die_contention must
+    launch)."""
+    import torch
+
+    from repro_torch.apps import vector_search as vs
+    from repro_torch.kernels import ops
+
+    cfg = vs.SearchConfig(beam_width=4)
+    t0 = time.perf_counter()
+    vecs, graph = vs.build_index(0, VS_N, cfg, dev)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    cells, outs = [], {}
+    for iops in VS_IOPS:
+        ssd, ecfg = vs.case_configs(VS_N, iops)
+        for b in VS_BATCHES:
+            q = vs.case_queries(b, cfg.dim, 0, dev)
+            truth = vs.ground_truth(vecs, q, cfg.top_k)
+            searcher = vs.make_search(cfg, ssd, ecfg=ecfg)
+
+            def run():
+                return searcher(q, vecs, graph)
+
+            t0 = time.perf_counter()
+            first = run()
+            first_s = time.perf_counter() - t0
+            out, walls = timed_runs(run, 3)
+            check(not search_differences(first, out),
+                  f"two graphed searches differ at batch {b}, {iops:g}")
+            prof = profiled_window(run, cfg.iterations)
+            out["recall"] = vs.recall_at_k(out["indices"], truth)
+            check(bool(torch.isfinite(out["distances"]).all())
+                  and out["distances"].shape == (b, cfg.top_k)
+                  and 0.0 <= out["recall"] <= 1.0 and out["qps"] > 0,
+                  f"search output off at batch {b}, {iops:g}: "
+                  f"{search_numbers(out)}")
+            outs[(b, iops)] = out
+            wall_ms = statistics.median(walls) * 1e3 / cfg.iterations
+            cells.append({
+                "batch": b, "t_max_iops": iops, **search_numbers(out),
+                "wall_ms_per_iteration": wall_ms,
+                "first_call_s_with_capture": first_s,
+                **profile_summary(wall_ms, prof), "wall_s_runs": walls})
+    ratios = {b: outs[(b, 40e6)]["qps"] / outs[(b, 2.5e6)]["qps"]
+              for b in VS_BATCHES}
+
+    b, iops = 256, 40e6
+    ssd, ecfg = vs.case_configs(VS_N, iops)
+    q = vs.case_queries(b, cfg.dim, 0, dev)
+    eager = vs.search(q, vecs, graph, cfg, ssd, ecfg=ecfg, graphed=False)
+    eager_diff = search_differences(outs[(b, iops)], eager)
+    wb = vs.search(q, vecs, graph, cfg, ssd, ecfg=ecfg, write_back=True)
+    check(wb["writeback_us"] > 0, "write-back priced no time")
+    ops.reset_launches()
+    read_on = vs.search(q, vecs, graph, cfg, ssd,
+                        ecfg=ecfg.replace(**READ_FLAGS))
+    wb_on = vs.search(q, vecs, graph, cfg, ssd,
+                      ecfg=ecfg.replace(**KERNEL_FLAGS), write_back=True)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    flags_diff = (search_differences(outs[(b, iops)], read_on)
+                  + search_differences(wb, wb_on))
+    emit({"phase": "vector_search", "card": card, "n": VS_N,
+          "width": cfg.beam_width, "iterations": cfg.iterations,
+          "index_build_s": index_s, "cells": cells,
+          "qps_ratio_40e6_over_2_5e6": ratios,
+          "eager_vs_graph_differing": eager_diff,
+          "write_back": search_numbers(wb),
+          "flags_on_vs_off_differing": flags_diff,
+          "launches": launches})
+    check(not eager_diff, f"eager and graphed searches differ: {eager_diff}")
+    check(not flags_diff, f"kernel flags change the search: {flags_diff}")
+    for k in ("seg_scan", "fused_reap", "die_contention"):
+        check(launches[k] > 0, f"{k} did not launch in the search")
+    return launches
+
+
+def workload_cells():
+    """(name, EngineConfig, SSDConfig, workload, rounds) of figs 18-20 at
+    their full size (``benchmarks/figures.py:323-446``) and a two-tenant
+    loop on local_1drive."""
+    import numpy as np
+
+    from repro_torch import workloads as tw
+    from repro_torch.bench import D7_PS1010, local_1drive
+
+    cfg, future = local_1drive()
+    ssd = D7_PS1010
+    depth, n_trace = 1024, 16384
+    trace_t = np.cumsum(np.full(n_trace, 1e6 / (ssd.t_max_iops * 0.5))
+                        ).astype(np.float32)
+    trace = tw.TraceReplay.from_trace(
+        trace_t, np.arange(n_trace) % ssd.num_blocks, np.zeros(n_trace), cfg)
+    cells = [
+        ("fig18/closed_loop", cfg, ssd, tw.ClosedLoop(io_depth=depth), 64),
+        ("fig18/poisson_open", cfg, ssd, tw.PoissonOpenLoop(
+            io_depth=depth, rate_iops=ssd.t_max_iops * 0.8), 64),
+        ("fig18/zipf_0.9_lba_hash", cfg, ssd.replace(routing="lba_hash"),
+         tw.ZipfClosedLoop(io_depth=depth, theta=0.9), 64),
+        ("fig18/trace_replay", cfg, ssd, trace, 64),
+    ]
+    cfg50 = cfg.replace(poll_quantum_us=50.0)
+    ssd19 = ssd.replace(num_blocks=1 << 14, num_channels=16,
+                        chips_per_channel=8)
+    for rf in (1.0, 0.9, 0.7, 0.5):
+        cells.append((f"fig19/read_frac_{rf}", cfg50, ssd19,
+                      tw.SteadyStateMixed(io_depth=64, read_frac=rf,
+                                          theta=0.9), 192))
+    ssd20 = ssd19.replace(num_blocks=1 << 15)
+    cells.append(("fig20/fresh", cfg50, ssd20,
+                  tw.MixedReadWrite(io_depth=64, read_frac=0.7, theta=0.9),
+                  192))
+    cells.append(("fig20/steady_state", cfg50, ssd20,
+                  tw.SteadyStateMixed(io_depth=64, read_frac=0.7, theta=0.9),
+                  192))
+    cells.append(("multi_tenant_local_1drive", cfg, future,
+                  tw.MultiTenant(io_depth=256, tenant_read_frac=(1.0, 0.0)),
+                  ROUNDS))
+    return cells
+
+
+# The reference's figs 18-20 (``benchmarks/figures.py``, the JAX package
+# on a CPU) at the same settings: virtual numbers of the emulated drive,
+# deterministic, not speeds of any chip.
+WORKLOAD_REFERENCE = {
+    "fig18/closed_loop": dict(virtual_miops=2.4616845, p50_us=7365.25,
+                              p99_us=12634.62890625),
+    "fig18/poisson_open": dict(virtual_miops=1.727810625,
+                               p50_us=98.2171859741211,
+                               p99_us=117.57432556152344),
+    "fig18/zipf_0.9_lba_hash": dict(virtual_miops=0.0972523671875,
+                                    p50_us=8816.8310546875,
+                                    p99_us=91398.171875),
+    "fig18/trace_replay": dict(virtual_miops=1.125160875,
+                               p50_us=68.53895568847656,
+                               p99_us=82.04695892333984),
+    "fig19/read_frac_1.0": dict(virtual_miops=2.449457,
+                                p50_us=850.5258178710938,
+                                p99_us=850.5258178710938, gc_count=0.0),
+    "fig19/read_frac_0.9": dict(virtual_miops=0.7589703125,
+                                p50_us=850.5258178710938,
+                                p99_us=6152.654296875, gc_count=116.0),
+    "fig19/read_frac_0.7": dict(virtual_miops=0.158587390625,
+                                p50_us=12634.62890625,
+                                p99_us=21673.921875, gc_count=389.0),
+    "fig19/read_frac_0.5": dict(virtual_miops=0.083335265625,
+                                p50_us=25945.52734375,
+                                p99_us=37180.265625, gc_count=646.0),
+    "fig20/fresh": dict(virtual_miops=2.068527, p50_us=1018.1517333984375,
+                        p99_us=1218.814208984375, gc_count=0.0),
+    "fig20/steady_state": dict(virtual_miops=0.19661240625,
+                               p50_us=3586.6376953125,
+                               p99_us=18105.58203125, gc_count=438.0),
+}
+
+
+def workload_numbers(state):
+    m = state.metrics
+    return {"virtual_miops": float(m.iops()) / 1e6,
+            "completed": float(m.completed),
+            "avg_e2e_us": float(m.avg_e2e_us()),
+            "p50_us": float(m.p50_us()), "p95_us": float(m.p95_us()),
+            "p99_us": float(m.p99_us()),
+            "gc_count": float(state.device.flash.gc_count),
+            "free_pages": float(state.device.flash.free_pages),
+            "tenant_completed": state.metrics.tenant_completed.tolist()}
+
+
+def phase_workloads(dev, card):
+    """Every cell of ``workload_cells`` graphed through ``make_runner`` on
+    the card with the reference's flags (all off): virtual numbers, wall
+    and device ms a round, and the final state against the port run
+    eagerly on the CPU (integer leaves equal, float leaves bit-exact but
+    the metric sums, within SUM_LEAF_ULP), and figs 18-20's virtual
+    numbers against the reference's (``WORKLOAD_REFERENCE``, to the last
+    digit). Then the same graphed with
+    the kernel flags on (counts reset just before, read just after):
+    ``READ_FLAGS`` where no write reaches the drive (seg_scan and
+    fused_reap must launch), every flag where writes do (die_contention
+    and fused_reap must launch); bit-identical to the flags off. Last, the
+    Zipf power's and the Poisson log's own device cost (``stream_costs``)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import engine
+    from repro_torch.core.types import PlatformModel
+    from repro_torch.kernels import ops
+
+    plat = PlatformModel()
+    bounds = dict.fromkeys(SUM_LEAVES, SUM_LEAF_ULP)
+    recs, launches = [], dict.fromkeys(ops.LAUNCHES, 0)
+    for name, cfg, ssd, wl, rounds in workload_cells():
+        state = engine.init_state(cfg, ssd, wl, device=dev)
+        runner = engine.make_runner(cfg, ssd, wl, plat, rounds, device=dev)
+        t0 = time.perf_counter()
+        out = runner(state)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        _, walls = timed_runs(lambda: runner(state), 3)
+        prof = profiled_window(lambda: runner(state), rounds)
+        card_np = convert.engine_state_to_numpy(out)
+        cpu_np = convert.engine_state_to_numpy(engine.simulate(
+            cfg, ssd, wl, plat, rounds=rounds, device="cpu"))
+        vs_cpu = convert.leaf_differences(cpu_np, card_np, bounds)
+        writes = (getattr(wl, "read_frac", 1.0) < 1.0
+                  or hasattr(wl, "tenant_read_frac"))
+        cfg_on = cfg.replace(**(KERNEL_FLAGS if writes else READ_FLAGS))
+        ops.reset_launches()
+        on = engine.make_runner(cfg_on, ssd, wl, plat, rounds, device=dev)(
+            engine.init_state(cfg_on, ssd, wl, device=dev))
+        torch.cuda.synchronize()
+        counted = dict(ops.LAUNCHES)
+        for k, v in counted.items():
+            launches[k] += v
+        vs_flags = convert.leaf_differences(
+            card_np, convert.engine_state_to_numpy(on))
+        numbers = workload_numbers(out)
+        off_ref = differing(numbers, WORKLOAD_REFERENCE.get(name, {}))
+        wall_ms = statistics.median(walls) * 1e3 / rounds
+        rec = {"cell": name, "rounds": rounds, "io_depth": wl.io_depth,
+               **numbers, "wall_ms_per_round": wall_ms,
+               "first_call_s_with_capture": first_s,
+               **profile_summary(wall_ms, prof),
+               "card_vs_cpu_violations": vs_cpu,
+               "card_vs_reference_differing": off_ref,
+               "flags_on": "all" if writes else "READ_FLAGS",
+               "flags_on_vs_off_differing": vs_flags,
+               "launches_flags_on": counted}
+        recs.append(rec)
+        check(numbers["completed"] > 0, f"{name}: nothing completed")
+        check(not vs_cpu, f"{name}: card and CPU differ: {vs_cpu}")
+        check(not off_ref, f"{name}: virtual numbers (card, reference) "
+                           f"differ: {off_ref}")
+        check(not vs_flags, f"{name}: kernel flags change the run: "
+                            f"{vs_flags}")
+        for k in ("fused_reap",
+                  "die_contention" if writes else "seg_scan"):
+            check(counted[k] > 0, f"{name}: {k} did not launch")
+    emit({"phase": "workloads", "card": card, "cells": recs,
+          "stream_cost_per_round": stream_costs(dev),
+          "launches": launches})
+    return launches
+
+
+def stream_costs(dev):
+    """Device ms and events of the Zipf power and the Poisson log alone,
+    at the shape one engine round gives them (``local_1drive``'s 32 SQs x
+    256 fetch slots = 8192 ids, figs 18-20): ``xla_math.pow_f32`` (theta
+    0.9) and ``log_f32`` on uniform float32, the whole ``address`` and
+    ``gap_us`` calls, and torch.pow / torch.log on the same inputs (one
+    library kernel each, not rounded as XLA rounds)."""
+    import torch
+
+    from repro_torch import workloads as tw
+    from repro_torch.bench import D7_PS1010, local_1drive
+    from repro_torch.core.xla_math import log_f32, pow_f32
+
+    cfg, _ = local_1drive()
+    n = cfg.num_sqs * cfg.fetch_width
+    u = torch.rand(n, generator=torch.Generator().manual_seed(0)).to(dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    zipf = tw.ZipfClosedLoop(theta=0.9)
+    pois = tw.PoissonOpenLoop(rate_iops=D7_PS1010.t_max_iops * 0.8)
+    alpha = 1.0 / (1.0 - zipf.theta)
+    out = {"ids": n}
+    for name, fn in (
+            ("pow_f32", lambda: pow_f32(u, alpha)),
+            ("torch_pow", lambda: torch.pow(u, alpha)),
+            ("zipf_address", lambda: zipf.address(ids, D7_PS1010, 0)),
+            ("log_f32", lambda: log_f32(u)),
+            ("torch_log", lambda: torch.log(u)),
+            ("poisson_gap_us", lambda: pois.gap_us(ids, cfg, 0))):
+        ms, events = device_ms(fn)
+        out[name] = {"device_ms": ms, "device_events": events}
+    return out
+
+
+def stream_differences(dev):
+    """Zipf addresses (theta 0.9, 2^14 and 2^20 blocks, salts 0 and 5) and
+    Poisson gaps (fig 18's rate on 32 SQs) of request ids 0..2^20-1, card
+    against CPU, counted per stream."""
+    import torch
+
+    from repro_torch import workloads as tw
+    from repro_torch.bench import D7_PS1010, local_1drive
+
+    cfg, _ = local_1drive()
+    out = {}
+    for dv in (dev, "cpu"):
+        ids = torch.arange(1 << 20, dtype=torch.int32, device=dv)
+        zipf = tw.ZipfClosedLoop(theta=0.9)
+        pois = tw.PoissonOpenLoop(rate_iops=D7_PS1010.t_max_iops * 0.8)
+        for blocks in (1 << 14, 1 << 20):
+            for salt in (0, 5):
+                out.setdefault(f"zipf_{blocks}_{salt}", []).append(
+                    zipf.address(ids, D7_PS1010.replace(num_blocks=blocks),
+                                 salt).cpu())
+        out.setdefault("poisson_gap_us", []).append(
+            pois.gap_us(ids, cfg, 3).cpu())
+    return {k: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            for k, (a, b) in out.items()}
+
+
+def search_card_vs_cpu(dev):
+    """The vector search at n = 1024, batch 64, width 4, 2.5e6 and 40e6
+    IOPS with write-back, on the card (graphed) and on the CPU from one
+    index: the kNN graph built on each, and every result."""
+    from repro_torch.apps import vector_search as vs
+
+    cfg = vs.SearchConfig(beam_width=4)
+    vecs, graph = vs.build_index(0, 1024, cfg, "cpu")
+    graph_card = vs.knn_graph(vecs.to(dev), cfg.degree)
+    diffs = {"knn_graph": [] if bitwise_equal(graph_card.cpu(), graph)
+             else ["knn_graph"]}
+    q = vs.case_queries(64, cfg.dim, 0, "cpu")
+    for iops in (2.5e6, 40e6):
+        ssd, ecfg = vs.case_configs(1024, iops)
+        cpu = vs.search(q, vecs, graph, cfg, ssd, ecfg=ecfg, write_back=True)
+        gpu = vs.search(q.to(dev), vecs.to(dev), graph.to(dev), cfg, ssd,
+                        ecfg=ecfg, write_back=True)
+        diffs[f"search_{iops:g}"] = search_differences(cpu, gpu)
+    return diffs
 
 
 # -- phases: the serving path -------------------------------------------------
@@ -1461,7 +1867,8 @@ def main() -> int:
             launches[k] += v
     phase_exact(dev, card)
     phase_cpu_vs_card(dev, card)
-    for counts in (phase_serve_tier(dev, card), phase_serve_long(dev, card)):
+    for counts in (phase_vector_search(dev, card), phase_workloads(dev, card),
+                   phase_serve_tier(dev, card), phase_serve_long(dev, card)):
         for k, v in counts.items():
             launches[k] += v
 

@@ -141,3 +141,23 @@ def model_params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
 
     device = torch.device(device)
     return {k: conv(v, k == "periods") for k, v in tree.items()}
+
+
+def search_inputs_from_numpy(vecs, graph, queries, device
+                             ) -> "tuple[torch.Tensor, ...]":
+    """A vector-search index and its queries on ``device``, bit for bit:
+    the reference's ``build_index`` vectors (N, D) float32 and graph
+    (N, degree) int32, and its (B, D) float32 queries, as numpy arrays.
+    Raises ``ValueError`` on another dtype or a mismatched shape."""
+    vecs, graph, queries = (np.asarray(a) for a in (vecs, graph, queries))
+    for name, a, want in (("vecs", vecs, np.float32),
+                          ("graph", graph, np.int32),
+                          ("queries", queries, np.float32)):
+        if a.dtype != want or a.ndim != 2:
+            raise ValueError(f"{name}: {a.dtype}{a.shape}, want a 2-D "
+                             f"{np.dtype(want).name} array")
+    if graph.shape[0] != vecs.shape[0] or queries.shape[1] != vecs.shape[1]:
+        raise ValueError(f"shapes do not fit: vecs {vecs.shape}, graph "
+                         f"{graph.shape}, queries {queries.shape}")
+    device = torch.device(device)
+    return tuple(_tensor(a, device) for a in (vecs, graph, queries))

@@ -7,11 +7,12 @@ is posted as SQEs into real ``SQRings`` (dealt round-robin across the
 service units' SQs), fetched by the engine's own frontend, priced by the
 shared ``DevicePipeline.process`` and reaped from the paired CQs, in as
 many fetch passes as the batch needs. The functional block store is
-updated and gathered beside it.
+updated and gathered beside it. ``read`` and ``write`` are thin wrappers
+over ``submit`` with an all-read or all-write batch.
 
-The array, striped and replicated entry points and the legacy wrappers
-wait for ROADMAP A14; the stage-0 page cache for A13 (the pipeline
-rejects ``cache.enabled`` when it is built).
+The array, striped and replicated entry points wait for ROADMAP A11; the
+stage-0 page cache for A13 (the pipeline rejects ``cache.enabled`` when
+it is built).
 """
 from __future__ import annotations
 
@@ -142,3 +143,44 @@ class StorageClient:
             flash = scatter_last(flash, dst, data)
         out = flash[torch.where(valid, lba, 0).long()] if with_data else None
         return ClientState(dev=dev), flash, out, done
+
+    # -- thin wrappers over submit -------------------------------------------
+    def read(
+        self,
+        state: ClientState,
+        flash: torch.Tensor,     # (num_blocks, block_words)
+        lba: torch.Tensor,       # (N,) i32 block addresses
+        t_submit: "torch.Tensor | float" = 0.0,   # () or (N,) f32
+        valid: "torch.Tensor | None" = None,
+        with_data: bool = True,
+        tenant: "torch.Tensor | int" = 0,   # () or (N,) i32 QoS class
+    ) -> Tuple[ClientState, "torch.Tensor | None", torch.Tensor]:
+        """N block reads at ``t_submit`` through the SQ/CQ rings: ``submit``
+        with an all-read batch. Returns (state', data (N, block_words) or
+        ``None`` when ``with_data=False``, completion times (N,))."""
+        ops = StorageOps.make(lba, t_submit, tenant=tenant, valid=valid)
+        state, _, data, done = self.submit(
+            state, flash, ops, with_data=with_data
+        )
+        return state, data, done
+
+    def write(
+        self,
+        state: ClientState,
+        flash: torch.Tensor,     # (num_blocks, block_words)
+        data: torch.Tensor,      # (N, block_words) blocks to persist
+        lba: torch.Tensor,       # (N,) i32 destination block addresses
+        t_submit: "torch.Tensor | float" = 0.0,   # () or (N,) f32
+        valid: "torch.Tensor | None" = None,
+        tenant: "torch.Tensor | int" = 0,   # () or (N,) i32 QoS class
+    ) -> Tuple[ClientState, torch.Tensor, torch.Tensor]:
+        """N block writes at ``t_submit`` through the SQ/CQ rings: ``submit``
+        with an all-write batch, so stage 4 prices flash programs (and GC).
+        Returns (state', flash' with the blocks scattered in, completion
+        times (N,)). Of several writes to one LBA in a batch the last lands
+        (the reference leaves that unspecified)."""
+        ops = StorageOps.make(
+            lba, t_submit, opcode=OP_WRITE, tenant=tenant, valid=valid
+        )
+        state, flash, _, done = self.submit(state, flash, ops, data=data)
+        return state, flash, done

@@ -122,6 +122,13 @@ class Workload:
             tenant=tenant,
         )
 
+    def sharded(self, num_shards: int) -> "Workload":
+        """This generator on one drive of an M-drive array. Salt-aware
+        generators give M independent streams from the salt alone and
+        return ``self``; ``TraceReplay`` stripes its trace."""
+        del num_shards
+        return self
+
     def next_submit(
         self,
         new_req: torch.Tensor,   # (N,) i32 ids of the would-be new requests

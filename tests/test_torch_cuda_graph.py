@@ -212,3 +212,31 @@ def test_graphed_decode_step_equals_eager_on_the_card(card):
     assert torch.equal(got["tokens"], torch.stack(out, 1))
     for w, g in zip(kept, got["logits"]):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_make_search_replays_one_capture_on_the_card(card):
+    """A ``make_search`` object captures its iteration at the first call
+    and replays that capture at the next: both calls equal the eager
+    search bit for bit, and inputs of another shape raise."""
+    from repro_torch.apps import vector_search as vs
+
+    cfg = vs.SearchConfig(beam_width=2, iterations=6)
+    vecs, graph = vs.build_index(0, 256, cfg, card)
+    queries = vs.case_queries(8, cfg.dim, 0, card)
+    ssd, ecfg = vs.case_configs(256, 40e6)
+    eager = vs.search(queries, vecs, graph, cfg, ssd, ecfg=ecfg,
+                      graphed=False)
+    searcher = vs.make_search(cfg, ssd, ecfg=ecfg)
+    first = searcher(queries, vecs, graph)
+    captured = searcher.captured
+    second = searcher(queries, vecs, graph)
+    assert searcher.captured is captured
+    for got in (first, second):
+        for k, v in eager.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(got[k], v), k
+            else:
+                assert got[k] == v, k
+    with pytest.raises(ValueError, match="does not fit"):
+        searcher(queries[:4], vecs, graph)
