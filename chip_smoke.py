@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then
-runs eleven phases, printing one JSON line each:
+runs twelve phases, printing one JSON line each:
 
   env              nvidia-smi's card name and power limit, torch/CUDA
                    versions, kernel build seconds
@@ -75,6 +75,22 @@ runs eleven phases, printing one JSON line each:
                    and device ms a round; the final state against the CPU
                    port's, and again with the kernel flags on,
                    bit-identical
+  array            the M-drive array on the one card: fig 17 (stock
+                   local_1drive at depth 1024, 24 rounds, M = 1, 2, 4, 8,
+                   main_path_read's kernel flags, one captured array round
+                   replayed) against the reference's aggregate MIOPS,
+                   fraction of target, p50 and p99, with wall and device
+                   ms a round, emulated requests a wall-second, device
+                   events a round (M = 4 within 1.1x of M = 1) and the
+                   same kernel launches a graphed round at every M;
+                   array_4drive (depth 256) and a 70/30 array with data
+                   emulated and every kernel flag on, graphed equal to
+                   eager, to the CPU port and drive by drive to single
+                   drives of salt d; the vector search striped over 4
+                   drives (n = 4096, batch 256, 40e6) against the CPU port;
+                   the 4 x 40M striped KV tier (fig 27) against the
+                   reference; the four engine kernels' flattened calls
+                   against per-drive plain calls
   serve_tier       ``python -m repro_torch.launch.serve --arch starcoder2-3b
                    --iops 40e6``'s objects at full width (batch 4, prompt
                    32, 16 tokens) with the attention kernels on: generate
@@ -1571,6 +1587,311 @@ def search_card_vs_cpu(dev):
     return diffs
 
 
+# -- phase: the M-drive array -------------------------------------------------
+
+ARRAY_DEVICES = (1, 2, 4, 8)
+# The reference's fig 17 (``benchmarks/figures.py::fig17_array_scaling``,
+# the JAX package on a CPU: swarmio_cfg() on FUTURE_40M, closed loop at
+# depth 1024, 24 rounds, M vmapped drives). Virtual numbers of the
+# emulated array, deterministic, not speeds of any chip;
+# tests/test_torch_array_figures.py recomputes them.
+ARRAY_REFERENCE = {
+    1: dict(aggregate_miops=38.139072, fraction_of_target=0.9534768,
+            p50_us=495.80682373046875, p99_us=850.5258178710938),
+    2: dict(aggregate_miops=76.278144, fraction_of_target=0.9534768,
+            p50_us=495.80682373046875, p99_us=850.5258178710938),
+    4: dict(aggregate_miops=152.556288, fraction_of_target=0.9534768,
+            p50_us=495.80682373046875, p99_us=850.5258178710938),
+    8: dict(aggregate_miops=305.112576, fraction_of_target=0.9534768,
+            p50_us=495.80682373046875, p99_us=850.5258178710938),
+}
+# fig 27's 4x40m_striped point (benchmarks/kv_serving.py, not quick):
+# yi-34b's smoke dims, page 16, hot window 64, 100 us of GPU time a token,
+# four drives of SSDConfig(40e6 IOPS, l_min 30 us, 512 instances, 2^14
+# blocks), EngineConfig(num_units=8, fetch_width=64), batch 4 after 512
+# tokens, 16 steps; the reference on a CPU (virtual time).
+ARRAY_TIER_REFERENCE = {
+    "tokens_per_s": 34517.150109851056,
+    "avg_step_us": 115.8844223022461,
+    "iops_demand": 7749100.199661562,
+}
+ARRAY_EVENTS_RATIO = 1.1     # graphed round's device events, M = 4 over 1
+
+
+def array_numbers(state, m):
+    from repro_torch.core import engine
+
+    agg = float(engine.aggregate_iops(state))
+    met = state.metrics
+    return {"aggregate_miops": agg / 1e6,
+            "fraction_of_target": agg / (m * 40e6),
+            "p50_us": float(met.p50_us()), "p99_us": float(met.p99_us())}
+
+
+def array_run(cfg, ssd, wl, m, dev, reps=3):
+    """ROUNDS rounds of an M-drive array through ``make_array_runner`` on
+    the card (one captured array round, replayed), warmed up and captured
+    once, then timed ``reps`` times (launch counts covering exactly the
+    timed runs) and profiled once. Returns (final state, record, counted
+    launches, the graph's launches a round)."""
+    from repro_torch.core import engine
+    from repro_torch.core.types import PlatformModel
+    from repro_torch.kernels import ops
+
+    state = engine.init_array_state(cfg, ssd, wl, m, device=dev)
+    runner = engine.make_array_runner(cfg, ssd, wl, PlatformModel(), ROUNDS,
+                                      device=dev)
+    t0 = time.perf_counter()
+    runner(state)
+    first_s = time.perf_counter() - t0
+    ops.reset_launches()
+    out, walls = timed_runs(lambda: runner(state), reps)
+    counted = dict(ops.LAUNCHES)
+    prof = profiled_window(lambda: runner(state), ROUNDS)
+    completed = float(out.metrics.completed.sum())
+    wall_ms = statistics.median(walls) * 1e3 / ROUNDS
+    rec = {"devices": m, "wall_ms_per_round": wall_ms,
+           "emulated_requests_per_wall_s": completed / statistics.median(
+               walls),
+           "completed_per_run": completed, "wall_s_runs": walls,
+           "first_call_s_with_capture": first_s,
+           **profile_summary(wall_ms, prof),
+           "engine_kernel_device_ms_per_round":
+               prof["engine_kernel_device_ms_per_round"],
+           "launches_per_graph": runner.runner.graph.launches}
+    return out, rec, counted, runner.runner.graph.launches
+
+
+def flattened_kernel_cases(dev):
+    """The four engine kernels on M = 3 drives in one card call each,
+    against M calls of their plain versions on the CPU: indices wrapped
+    and clamped per drive (block_gather), out-of-range keys of valid rows
+    and a tail at the int32 wrap (fused_reap), a drive without a head at
+    its first row (seg_scan). Returns the cases that differ."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(19)
+    m = 3
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x))
+
+    flash = t(rng.random((m, 64, 16), dtype=np.float32))
+    idx = t(rng.integers(-80, 80, (m, 999)).astype(np.int32))
+    heads = t(rng.random((m, 5000)) < 0.01)
+    heads[1, 0] = False
+    vals = t(rng.normal(size=(m, 5000)).astype(np.float32))
+    k = 512
+    dc = (t(rng.integers(0, 99, (m, 2048)).astype(np.float32)),
+          t(rng.integers(1, 9, (m, 2048)).astype(np.float32)),
+          t(rng.integers(0, k, (m, 2048)).astype(np.int32)),
+          t(rng.random((m, 2048)) < 0.5),
+          t(rng.integers(0, 50, (m, k)).astype(np.float32)))
+    q, d, n = 32, 1024, 8192
+    valid = t(rng.random((m, n)) < 0.8)
+    key = t(rng.integers(-2, q + 3, (m, n)).astype(np.int32))
+    tail = t(rng.integers(0, 5000, (m, q)).astype(np.int32))
+    tail[1] = 2 ** 31 - 700
+    fr = (t(rng.random((m, q, d), dtype=np.float32)),
+          t(rng.random((m, q, d), dtype=np.float32)),
+          t(rng.integers(0, 99, (m, q, d)).astype(np.int32)), tail, key,
+          t(rng.random((m, n), dtype=np.float32)),
+          t(rng.integers(0, 1 << 20, (m, n)).astype(np.int32)), valid)
+    cases = {"block_gather": (ops.block_gather, (flash, idx)),
+             "seg_scan": (ops.seg_scan, (vals, heads)),
+             "die_contention": (ops.die_contention, dc),
+             "fused_reap": (ops.fused_reap, fr)}
+    bad = []
+    for name, (fn, args) in cases.items():
+        got = fn(*(a.to(dev) for a in args))
+        got = got if isinstance(got, tuple) else (got,)
+        for dr in range(m):
+            want = fn(*(a[dr] for a in args))
+            want = want if isinstance(want, tuple) else (want,)
+            if not all(bitwise_equal(g[dr].cpu(), w)
+                       for g, w in zip(got, want)):
+                bad.append(f"{name}[drive {dr}]")
+    return bad
+
+
+def phase_array(dev, card):
+    """The M-drive array on one card. Fig 17 at M = 1, 2, 4 and 8
+    (local_1drive's stock config at depth 1024, 24 rounds, main_path_read's
+    kernel flags, graphed): aggregate virtual MIOPS, fraction of 40e6 * M,
+    p50 and p99 against ``ARRAY_REFERENCE``; wall ms and emulated requests
+    a wall-second, device ms and events a round, device ms over the timed
+    wall. Each engine kernel must launch as often a graphed round at every
+    M, and a graphed round at M = 4 must hold within ``ARRAY_EVENTS_RATIO``
+    of M = 1's device events. Then array_4drive (depth 256) and a 70/30
+    array with data emulated and every kernel flag on, each eager and
+    graphed: bit-identical to each other, to the port's run on the CPU
+    (metric sums within SUM_LEAF_ULP; ``card_vs_cpu_max_ulp`` lists every
+    float leaf that is not bit-identical) and, drive by drive, to
+    single-drive runs of salt d on the card. Then the striped vector search (M = 4,
+    n = 4096, width 4, batch 256, 40e6 IOPS) against the same search on
+    the CPU, and the 4x40M striped KV tier against
+    ``ARRAY_TIER_REFERENCE``. Last, the four kernels' flattened calls on
+    the card against per-drive plain calls (not counted as launches)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.apps import vector_search as vs
+    from repro_torch.bench import array_4drive, local_1drive
+    from repro_torch.core import engine
+    from repro_torch.core.types import (
+        EngineConfig, PlatformModel, SSDConfig, WorkloadConfig)
+    from repro_torch.kernels import ops
+    from repro_torch.serving import kv_tier
+    from repro_torch.workloads import MixedReadWrite
+
+    plat = PlatformModel()
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def add(counted):
+        for k, v in counted.items():
+            launches[k] += v
+
+    cfg, ssd = local_1drive(**READ_FLAGS)
+    fig17, per_graph = [], {}
+    for m in ARRAY_DEVICES:
+        out, rec, counted, graph = array_run(
+            cfg, ssd, WorkloadConfig(io_depth=1024), m, dev)
+        add(counted)
+        nums = array_numbers(out, m)
+        bad = differing(nums, ARRAY_REFERENCE[m])
+        check(not bad, f"fig 17 at M={m} (got, reference) differs: {bad}")
+        check(out.rings.submit_time.shape[0] == m
+              and bool(torch.isfinite(out.clock).all()),
+              f"fig 17 at M={m}: state off")
+        per_graph[m] = graph
+        fig17.append({**nums, **rec})
+    for m in ARRAY_DEVICES:
+        check(per_graph[m] == per_graph[1],
+              f"kernel launches a graphed round differ at M={m}: "
+              f"{per_graph[m]} vs {per_graph[1]}")
+    events = {r["devices"]: r["profiled"]["device_events_per_round"]
+              for r in fig17}
+    events_ratio = events[4] / events[1]
+
+    bounds = dict.fromkeys(SUM_LEAVES, SUM_LEAF_ULP)
+    cfg4, ssd4, m4 = array_4drive(**READ_FLAGS)
+    cells = {
+        "array_4drive": (cfg4, ssd4, WorkloadConfig(io_depth=256)),
+        "array_4drive_mixed_data": (
+            cfg4.replace(emulate_data=True, **KERNEL_FLAGS), ssd4,
+            MixedReadWrite(read_frac=0.7, io_depth=256)),
+    }
+    recs = []
+    for name, (c, s, wl) in cells.items():
+        graphed, rec, counted, graph = array_run(c, s, wl, m4, dev)
+        add(counted)
+        state = engine.init_array_state(c, s, wl, m4, device=dev)
+        ops.reset_launches()
+        eager = engine.run(state, c, s, wl, plat, ROUNDS)
+        torch.cuda.synchronize()
+        add(ops.LAUNCHES)
+        g_np = convert.engine_state_to_numpy(graphed)
+        vs_eager = convert.leaf_differences(
+            convert.engine_state_to_numpy(eager), g_np)
+        cpu_np = convert.engine_state_to_numpy(engine.simulate(
+            c, s, wl, plat, rounds=ROUNDS, num_devices=m4, device="cpu"))
+        vs_cpu = convert.leaf_differences(cpu_np, g_np, bounds)
+        cpu_ulp = {k: convert.ulp_distance(cpu_np[k], g_np[k])
+                   for k in cpu_np if cpu_np[k].dtype.kind == "f"
+                   and convert.ulp_distance(cpu_np[k], g_np[k])}
+        vs_single = {}
+        for d in range(m4):
+            one = engine.make_runner(c, s, wl, plat, ROUNDS, device=dev)(
+                engine.init_state(c, s, wl, salt=d, device=dev))
+            vs_single[d] = convert.leaf_differences(
+                convert.engine_state_to_numpy(one),
+                {k: v[d] for k, v in g_np.items()})
+        recs.append({"cell": name, **array_numbers(graphed, m4),
+                     "io_depth": wl.io_depth, **rec,
+                     "graph_vs_eager_differing_leaves": vs_eager,
+                     "card_vs_cpu_violations": vs_cpu,
+                     "card_vs_cpu_max_ulp": cpu_ulp,
+                     "drive_vs_single_drive_differing": vs_single})
+        check(float(graphed.metrics.completed.min()) > 0,
+              f"{name}: a drive completed nothing")
+        check(not vs_eager, f"{name}: graphed and eager differ: {vs_eager}")
+        check(not vs_cpu, f"{name}: card and CPU differ: {vs_cpu}")
+        check(not any(vs_single.values()),
+              f"{name}: drives differ from single drives: {vs_single}")
+        single_graph = engine.make_runner(c, s, wl, plat, 1, device=dev)
+        single_graph(engine.init_state(c, s, wl, device=dev))
+        check(graph == single_graph.graph.launches,
+              f"{name}: launches a graphed round {graph} differ from a "
+              f"single drive's {single_graph.graph.launches}")
+
+    # The striped vector search: index built on the card, the same search
+    # on the CPU.
+    scfg = vs.SearchConfig(beam_width=4)
+    vecs, graph_idx = vs.build_index(0, VS_N, scfg, dev)
+    q = vs.case_queries(256, scfg.dim, 0, dev)
+    vssd, vecfg = vs.case_configs(VS_N, 40e6)
+    searcher = vs.make_search(scfg, vssd, ecfg=vecfg.replace(**READ_FLAGS),
+                              num_devices=4)
+    searcher(q, vecs, graph_idx)   # the capture
+    ops.reset_launches()
+    s_out, s_walls = timed_runs(lambda: searcher(q, vecs, graph_idx), 3)
+    add(ops.LAUNCHES)
+    s_prof = profiled_window(lambda: searcher(q, vecs, graph_idx),
+                             scfg.iterations)
+    s_cpu = vs.search(q.cpu(), vecs.cpu(), graph_idx.cpu(), scfg, vssd,
+                      ecfg=vecfg, num_devices=4)
+    s_diff = search_differences(s_out, s_cpu)
+    s_out["recall"] = vs.recall_at_k(s_out["indices"],
+                                     vs.ground_truth(vecs, q, scfg.top_k))
+    s_wall = statistics.median(s_walls) * 1e3 / scfg.iterations
+    check(not s_diff, f"striped search: card and CPU differ: {s_diff}")
+
+    # The 4 x 40M striped KV tier (fig 27).
+    from repro_torch import configs
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tier = kv_tier.decode_tokens_per_s(
+        configs.get_config("yi-34b", smoke=True),
+        kv_tier.KVTierConfig(page_tokens=16, hot_window=64,
+                             gpu_step_us=100.0, num_devices=4),
+        SSDConfig(t_max_iops=40e6, l_min_us=30.0, n_instances=512,
+                  num_blocks=1 << 14),
+        EngineConfig(num_units=8, fetch_width=64, use_pallas_reap=True),
+        batch=4, start_len=512, n_steps=16, device=dev)
+    torch.cuda.synchronize()
+    tier_s = time.perf_counter() - t0
+    add(ops.LAUNCHES)
+    rel = {k: abs(tier[k] - v) / v for k, v in ARRAY_TIER_REFERENCE.items()}
+    check(tier["data_check_max_abs"] == 0.0, "striped tier data check")
+    check(all(r <= TIER_REL_TOL for r in rel.values()),
+          f"striped tier off the reference: {rel}")
+
+    flat_bad = flattened_kernel_cases(dev)
+    emit({"phase": "array", "card": card, "rounds": ROUNDS,
+          "fig17": fig17, "device_events_m4_over_m1": events_ratio,
+          "cells": recs,
+          "striped_search": {"devices": 4, "n": VS_N, "batch": 256,
+                             "t_max_iops": 40e6, **search_numbers(s_out),
+                             "wall_ms_per_iteration": s_wall,
+                             **profile_summary(s_wall, s_prof),
+                             "card_vs_cpu_differing": s_diff},
+          "striped_tier": {"devices": 4, **tier, "wall_s": tier_s,
+                           "rel_to_reference": rel},
+          "flattened_kernels_differing": flat_bad,
+          "launches": launches})
+    check(events_ratio <= ARRAY_EVENTS_RATIO,
+          f"a graphed round at M=4 has {events_ratio}x the device events "
+          f"of M=1 (bound {ARRAY_EVENTS_RATIO})")
+    check(not flat_bad, f"flattened kernel calls differ: {flat_bad}")
+    for k in ("seg_scan", "fused_reap", "block_gather", "die_contention"):
+        check(launches[k] > 0, f"{k} did not launch on the array path")
+    return launches
+
+
 # -- phases: the serving path -------------------------------------------------
 
 # The reference's kv_tier.decode_tokens_per_s at the serve command's
@@ -1868,7 +2189,8 @@ def main() -> int:
     phase_exact(dev, card)
     phase_cpu_vs_card(dev, card)
     for counts in (phase_vector_search(dev, card), phase_workloads(dev, card),
-                   phase_serve_tier(dev, card), phase_serve_long(dev, card)):
+                   phase_array(dev, card), phase_serve_tier(dev, card),
+                   phase_serve_long(dev, card)):
         for k, v in counts.items():
             launches[k] += v
 

@@ -19,15 +19,20 @@ its capture for every call of one shape, as ``engine.make_runner`` does.
 
 Reductions and ties follow the reference's compiled CPU program: a
 squared distance over 128 lanes is summed as XLA's CPU backend splits it
-(``_lane_sum``), and every top-k is a stable ascending sort, which keeps
-the lower index on ties as ``jax.lax.top_k`` does. ``build_index`` and
-``case_study`` draw from numpy's ``default_rng`` (the port cannot
-reproduce ``jax.random``), so their index is the port's own; tests feed
-the reference's index in through ``convert.search_inputs_from_numpy``.
+(``xla_math.lane_sum``), and every top-k is a stable ascending sort,
+which keeps the lower index on ties as ``jax.lax.top_k`` does.
+``build_index`` and ``case_study`` draw from numpy's ``default_rng``
+(the port cannot reproduce ``jax.random``), so their index is the port's
+own; tests feed the reference's index in through
+``convert.search_inputs_from_numpy``.
 
-An array of drives (``num_devices > 1``, ROADMAP A11), the stage-0 page
-cache (``cache_sets > 0``, A13) and a remote fabric (``remote``, A12) are
-not ported and raise ``NotImplementedError``.
+``num_devices = M > 1`` stripes each iteration's vector fetches
+round-robin over an emulated M-drive array (``StorageClient.read_striped``,
+the drives' state stacked on a leading axis and priced in one pass), and
+the write-back goes to the array as one (M, B*K/M) batch
+(``submit_array``). The stage-0 page cache (``cache_sets > 0``, ROADMAP
+A13) and a remote fabric (``remote``, A12) are not ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from repro_torch import cuda_graph
 from repro_torch.core.client import ClientState, StorageClient
 from repro_torch.core.device import check_ported
 from repro_torch.core.segops import stable_argsort
+from repro_torch.core.xla_math import lane_mean, lane_sum
 from repro_torch.core.types import (
     F32,
     I32,
@@ -65,10 +71,6 @@ REMOTE_FABRIC = FabricConfig(
 
 BIG = 3e38
 
-# XLA's CPU backend rewrites a sum over more than this many elements into
-# windows of this size (each summed in order), then sums the windows.
-_XLA_REDUCE_WINDOW = 32
-
 # Rows of the kNN graph built at a time, as the reference's
 # ``lax.map(batch_size=256)``: one chunk's lane differences at N = 4096
 # are 256 x 4096 x 128 float32, 512 MiB.
@@ -87,39 +89,17 @@ class SearchConfig:
     gpu_iter_overhead_us: float = 8.0
 
 
-def _lane_sum(x: torch.Tensor) -> torch.Tensor:
-    """Float32 sum over the last axis in the order of the reference's
-    compiled ``jnp.sum``: up to 32 elements left to right from 0; more in
-    windows of 32 (the axis padded with zeros to a whole number of
-    windows, half the padding in front), each summed that way, and then
-    the window sums, recursively."""
-    n = x.shape[-1]
-    if n > _XLA_REDUCE_WINDOW:
-        m = -(-n // _XLA_REDUCE_WINDOW)
-        pad = m * _XLA_REDUCE_WINDOW - n
-        if pad:
-            shape = x.shape[:-1]
-            x = torch.cat([x.new_zeros(shape + (pad // 2,)), x,
-                           x.new_zeros(shape + (pad - pad // 2,))], dim=-1)
-        x = _lane_sum(x.reshape(x.shape[:-1] + (m, _XLA_REDUCE_WINDOW)))
-        return _lane_sum(x)
-    acc = x[..., 0] + 0.0
-    for j in range(1, n):
-        acc = acc + x[..., j]
-    return acc
-
-
 def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``sum((a - b) ** 2, axis=-1)`` as the reference computes it."""
     d = a - b
-    return _lane_sum(d * d)
+    return lane_sum(d * d)
 
 
-def _one_drive(num_devices: int) -> None:
-    if num_devices != 1:
-        raise NotImplementedError(
-            "vector search over an array of drives (num_devices > 1) is "
-            "not ported yet (ROADMAP A11)"
+def _check_stripes(reads_per_iter: int, num_devices: int) -> None:
+    if num_devices < 1 or reads_per_iter % num_devices != 0:
+        raise ValueError(
+            f"batch*width*degree={reads_per_iter} must be divisible by "
+            f"num_devices={num_devices} for striped array reads"
         )
 
 
@@ -211,6 +191,7 @@ class _Search:
     cfg: SearchConfig
     storage: StorageClient
     gpu_us: float           # modelled GPU time an iteration (float32)
+    num_devices: int = 1    # > 1: reads striped over an array
 
     def iteration(self, c: _Carry, queries, vecs, graph
                   ) -> Tuple[_Carry, torch.Tensor]:
@@ -229,7 +210,9 @@ class _Search:
 
         # Storage: fault in the neighbour vectors (one block each).
         lba = nbrs.reshape(-1).clamp(min=0)
-        cstate, data, done = self.storage.read(
+        read = (self.storage.read if self.num_devices == 1
+                else self.storage.read_striped)
+        cstate, data, done = read(
             c.cstate, vecs, lba, c.clock, nvalid.reshape(-1)
         )
         storage_done = torch.amax(done)
@@ -280,20 +263,17 @@ class _GraphedSearch:
             self.steps.clone()
 
 
-def _ordered_mean(x: torch.Tensor) -> float:
-    """float32 mean of a vector as the reference's compiled ``jnp.mean``
-    takes it: the sum in ``_lane_sum``'s order, times float32(1/n) (XLA
-    turns the division by a constant into that product)."""
-    return float(_lane_sum(x) * float(np.float32(1.0 / x.shape[0])))
-
-
 class _Searcher:
     """A search with its configs bound (see ``make_search``)."""
 
     def __init__(self, cfg: SearchConfig, ssd: SSDConfig,
-                 ecfg: EngineConfig, plat: PlatformModel, graphed: bool):
+                 ecfg: EngineConfig, plat: PlatformModel, graphed: bool,
+                 num_devices: int = 1):
         check_ported(ecfg)
+        if num_devices < 1:
+            raise ValueError(f"num_devices={num_devices} must be >= 1")
         self.cfg, self.graphed = cfg, graphed
+        self.num_devices = num_devices
         self.storage = StorageClient(ssd, ecfg, plat)
         self.captured: "_GraphedSearch | None" = None
 
@@ -313,10 +293,11 @@ class _Searcher:
 
     def __call__(self, queries: torch.Tensor, vecs: torch.Tensor,
                  graph: torch.Tensor, write_back: bool = False) -> dict:
-        cfg, storage = self.cfg, self.storage
+        cfg, storage, m = self.cfg, self.storage, self.num_devices
         b, d = queries.shape
         n = vecs.shape[0]
         device = queries.device
+        _check_stripes(b * cfg.beam_width * cfg.degree, m)
 
         # Entry points: hash-spread start nodes (a uint32 product mod 2^32).
         start = (((torch.arange(b, dtype=torch.int64, device=device)
@@ -327,14 +308,16 @@ class _Searcher:
                            device=device)
         dist0[:, 0] = _sq_dist(queries, vecs[start.long()])
         idx0[:, 0] = start
-        carry = _Carry(dist0, idx0, exp0, storage.init_state(device),
+        cstate = (storage.init_state(device) if m == 1
+                  else storage.init_array_state(m, device))
+        carry = _Carry(dist0, idx0, exp0, cstate,
                        torch.zeros((), dtype=F32, device=device))
 
         # Per-iteration modelled GPU time: distance flops + merge overhead.
         flops_per_iter = b * cfg.beam_width * cfg.degree * d * 3
         gpu_us = (flops_per_iter / cfg.gpu_flops * 1e6
                   + cfg.gpu_iter_overhead_us)
-        s = _Search(cfg, storage, float(np.float32(gpu_us)))
+        s = _Search(cfg, storage, float(np.float32(gpu_us)), m)
 
         carry, step_us = self._iterate(s, carry, queries, vecs, graph)
         idx, cstate, clock = carry.idx, carry.cstate, carry.clock
@@ -343,16 +326,32 @@ class _Searcher:
         writeback_us = 0.0
         if write_back:
             # The result log goes through the unified op API: one write
-            # batch over the same rings as the reads.
+            # batch over the same rings as the reads (one row a drive on
+            # an array).
             k = cfg.top_k
             res_i = idx[:, :k]
             res_vecs = vecs[res_i.clamp(min=0).reshape(-1).long()]
             log = torch.zeros((b * k, d), dtype=F32, device=device)
             lba = torch.arange(b * k, dtype=I32, device=device)
             wvalid = (res_i >= 0).reshape(-1)
-            wops = StorageOps.make(lba, clock, opcode=OP_WRITE, valid=wvalid)
-            cstate, log, _, wdone = storage.submit(cstate, log, wops,
-                                                   data=res_vecs)
+            if m == 1:
+                wops = StorageOps.make(lba, clock, opcode=OP_WRITE,
+                                       valid=wvalid)
+                cstate, log, _, wdone = storage.submit(cstate, log, wops,
+                                                       data=res_vecs)
+            else:
+                if (b * k) % m != 0:
+                    raise ValueError(
+                        f"batch*top_k={b * k} must be divisible by "
+                        f"num_devices={m} for array write-back"
+                    )
+                wops = StorageOps.make(
+                    lba.reshape(m, -1), clock, opcode=OP_WRITE,
+                    valid=wvalid.reshape(m, -1),
+                )
+                cstate, log, _, wdone = storage.submit_array(
+                    cstate, log, wops, data=res_vecs.reshape(m, -1, d))
+                wdone = wdone.reshape(-1)
             writeback_us = max(
                 float(torch.amax(torch.where(wvalid, wdone, 0.0)))
                 - total_us, 0.0,
@@ -364,7 +363,7 @@ class _Searcher:
             "distances": carry.dist[:, : cfg.top_k],
             "virtual_us": total_us,
             "qps": b / (total_us * 1e-6),
-            "avg_iter_us": _ordered_mean(step_us),
+            "avg_iter_us": float(lane_mean(step_us)),
             "gpu_iter_us": float(gpu_us),
             "reads_per_iter": b * cfg.beam_width * cfg.degree,
             "writeback_us": writeback_us,
@@ -387,11 +386,11 @@ def make_search(
     the graph and its static buffers, which live as long as it does, and
     every later call must give inputs of the first call's shapes and
     device. A capture that fails raises. With ``graphed=False``, or on the
-    CPU, the iterations run eagerly."""
-    _one_drive(num_devices)
+    CPU, the iterations run eagerly. ``num_devices > 1`` stripes the
+    reads over an M-drive array."""
     return _Searcher(cfg, ssd, ecfg or EngineConfig(num_units=8,
                                                     fetch_width=64),
-                     plat or PlatformModel(), graphed)
+                     plat or PlatformModel(), graphed, num_devices)
 
 
 def search(
@@ -407,7 +406,9 @@ def search(
     graphed: bool = True,
 ) -> dict:
     """Returns results + virtual-time QPS accounting, on the inputs'
-    device. ``write_back=True`` persists each query's top-k result vectors
+    device. ``num_devices > 1`` stripes the vector fetches round-robin
+    over an emulated M-drive array (batch*width*degree must divide by M).
+    ``write_back=True`` persists each query's top-k result vectors
     to a result-log region through the same client after the search, so
     QPS pays for durable results. On a card the iterations replay a CUDA
     graph captured for this call unless ``graphed=False``; on the CPU they
@@ -470,8 +471,9 @@ def case_study(
     device: "torch.device | str | None" = None,
 ) -> dict:
     """One (batch, width, IOPS) cell of the paper's fig 16 study, on
-    ``device`` (``cuda`` unless named). ``cache_sets > 0`` (ROADMAP A13),
-    ``remote`` (A12) and ``num_devices > 1`` (A11) are not ported."""
+    ``device`` (``cuda`` unless named), over ``num_devices`` drives.
+    ``cache_sets > 0`` (ROADMAP A13) and ``remote`` (A12) are not
+    ported."""
     if remote is True:
         fabric = REMOTE_FABRIC
     elif isinstance(remote, FabricConfig):
@@ -480,13 +482,12 @@ def case_study(
         fabric = FabricConfig()
     ssd, ecfg = case_configs(n, t_max_iops, cache_sets, fabric)
     check_ported(ecfg)
-    _one_drive(num_devices)
     device = resolve_device(device)
     cfg = SearchConfig(beam_width=width, iterations=iterations)
     vecs, graph = _cached_index(n, cfg.dim, cfg.degree, seed, device)
     queries = case_queries(batch, cfg.dim, seed, device)
     out = search(queries, vecs, graph, cfg, ssd, ecfg=ecfg,
-                 write_back=write_back)
+                 num_devices=num_devices, write_back=write_back)
     truth = ground_truth(vecs, queries, cfg.top_k)
     out["recall"] = recall_at_k(out["indices"], truth)
     return out

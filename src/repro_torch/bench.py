@@ -9,10 +9,12 @@ DSA datapath) on ``FUTURE_40M`` (40e6 IOPS, 512 instances, 16384 blocks).
 ``nvmevirt_1drive`` is ``benchmarks/common.py::nvmevirt_cfg()`` (32 SQs x
 1024, fetch width 64, one dispatcher over all SQs, one entry a
 transaction, per-request timing and lock, 32 CPU copy workers) on the
-same drive.
+same drive. ``array_4drive`` is emulator_speed's configuration of that
+name: ``local_1drive``'s drive four times over, an emulated 4-drive array
+in one program.
 
     python -m repro_torch.bench [--rounds 24] [--mixed] [--plain] [--baseline]
-                                [--trace PATH]
+                                [--array M] [--trace PATH]
     python -m repro_torch.bench --serve [--steps 16] [--trace PATH]
 
 The first runs the drive read-only with the kernel flags on and profiles
@@ -23,6 +25,9 @@ a round), each once to warm up and once under ``torch.profiler``.
 (``MixedReadWrite(read_frac=0.7)``, ``chip_smoke.py``'s
 ``main_path_mixed``) with ``use_pallas_flash`` on as well, so that the
 rounds also price writes on the dies through ``die_contention``;
+``--array M`` runs an M-drive array of the drive instead
+(``engine.init_array_state`` and ``make_array_runner``: one round of all
+M drives, one CUDA graph; ``--array 4`` is ``array_4drive``);
 ``--plain`` turns every kernel flag off, so that the rounds run the scans
 on ``segops.associative_scan``; ``--baseline`` runs ``nvmevirt_1drive``
 instead (``chip_smoke.py``'s ``main_path_baseline``: the per-request fold on
@@ -84,6 +89,14 @@ def local_1drive(**kw):
     )
     base.update(kw)
     return EngineConfig(**base), FUTURE_40M
+
+
+def array_4drive(**kw):
+    """(EngineConfig, SSDConfig, M) of ``array_4drive``
+    (``benchmarks/emulator_speed.py``): ``local_1drive`` on each of M = 4
+    drives; ``kw`` overrides EngineConfig fields."""
+    cfg, ssd = local_1drive(**kw)
+    return cfg, ssd, 4
 
 
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -159,7 +172,8 @@ def profiled(fn, n: int, trace: "str | None" = None) -> dict:
 
 
 def profile_rounds(rounds: int, trace: "str | None", mixed: bool = False,
-                   plain: bool = False, baseline: bool = False) -> dict:
+                   plain: bool = False, baseline: bool = False,
+                   num_devices: int = 1) -> dict:
     from repro_torch.core import engine
     from repro_torch.core.types import PlatformModel, WorkloadConfig
     from repro_torch.workloads import MixedReadWrite
@@ -175,8 +189,14 @@ def profile_rounds(rounds: int, trace: "str | None", mixed: bool = False,
     wl = (MixedReadWrite(read_frac=0.7, io_depth=256) if mixed
           else WorkloadConfig(io_depth=256))
     plat = PlatformModel()
-    state = engine.init_state(cfg, ssd, wl, device=dev)
-    runner = engine.make_runner(cfg, ssd, wl, plat, rounds, device=dev)
+    if num_devices == 1:
+        state = engine.init_state(cfg, ssd, wl, device=dev)
+        runner = engine.make_runner(cfg, ssd, wl, plat, rounds, device=dev)
+    else:
+        state = engine.init_array_state(cfg, ssd, wl, num_devices,
+                                        device=dev)
+        runner = engine.make_array_runner(cfg, ssd, wl, plat, rounds,
+                                          device=dev)
 
     def eager():
         return engine.run(state, cfg, ssd, wl, plat, rounds)
@@ -188,7 +208,10 @@ def profile_rounds(rounds: int, trace: "str | None", mixed: bool = False,
     path = "mixed 70/30 rounds" if mixed else "read rounds"
     if baseline:
         path = "NVMeVirt baseline " + path
-    return {"path": path + (", kernels off" if plain else ""), **out}
+    if num_devices > 1:
+        path = f"{num_devices}-drive array, " + path
+    return {"path": path + (", kernels off" if plain else ""),
+            "num_devices": num_devices, **out}
 
 
 def profile_decode(steps: int, trace: "str | None", batch: int = 8,
@@ -242,6 +265,8 @@ def main() -> None:
                     help="rounds with every kernel flag off")
     ap.add_argument("--baseline", action="store_true",
                     help="profile rounds of the NVMeVirt baseline")
+    ap.add_argument("--array", type=int, default=1, metavar="M",
+                    help="profile rounds of an M-drive array")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace here")
@@ -252,7 +277,7 @@ def main() -> None:
         res = profile_decode(args.steps, args.trace)
     else:
         res = profile_rounds(args.rounds, args.trace, args.mixed, args.plain,
-                             args.baseline)
+                             args.baseline, args.array)
     print(json.dumps(res), flush=True)
 
 

@@ -4,7 +4,9 @@ the port.
 A state is exchanged as a flat dict of numpy arrays keyed by the
 reference's pytree paths, e.g. ``"device.tstate.busy_until"`` (the field
 names of the two packages' dataclasses are the same, so the paths are
-too). Dtypes pass through unchanged: float32, int32 and bool. Model
+too). Dtypes and shapes pass through unchanged: float32, int32 and bool,
+and an M-drive array's leading ``(M,)`` axis on every leaf. Engine states
+(``EngineState``) and client states (``ClientState``) go both ways. Model
 parameters are exchanged as the reference's own nested tree of dicts and
 tuples with numpy leaves (``model_params_from_numpy``).
 """
@@ -17,6 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core.client import ClientState
 from repro_torch.core.engine import EngineState
 from repro_torch.models.config import ModelConfig
 
@@ -49,11 +52,15 @@ def _build(cls, leaves: Dict[str, np.ndarray], prefix: str, device):
     return cls(**kw)
 
 
-def engine_state_to_numpy(state: EngineState) -> Dict[str, np.ndarray]:
-    """Every leaf of ``state`` as a numpy array, keyed by its path."""
+def engine_state_to_numpy(
+    state: "EngineState | ClientState",
+) -> Dict[str, np.ndarray]:
+    """Every leaf of ``state`` (an engine or a client state, one drive's
+    or an array's) as a numpy array, keyed by its path."""
     out: Dict[str, np.ndarray] = {}
     _collect(state, "", out)
     return out
+
 
 
 def ulp_distance(a: np.ndarray, b: np.ndarray) -> int:
@@ -100,6 +107,14 @@ def engine_state_from_numpy(
     (the inverse of ``engine_state_to_numpy``). A missing leaf raises
     ``KeyError`` naming its path."""
     return _build(EngineState, leaves, "", torch.device(device))
+
+
+def client_state_from_numpy(
+    leaves: Dict[str, np.ndarray], device: "torch.device | str"
+) -> ClientState:
+    """The port's ``ClientState`` on ``device`` from path-keyed leaves
+    (``"dev.tstate.busy_until"``, ...), one drive's or an array's."""
+    return _build(ClientState, leaves, "", torch.device(device))
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

@@ -7,12 +7,20 @@ is posted as SQEs into real ``SQRings`` (dealt round-robin across the
 service units' SQs), fetched by the engine's own frontend, priced by the
 shared ``DevicePipeline.process`` and reaped from the paired CQs, in as
 many fetch passes as the batch needs. The functional block store is
-updated and gathered beside it. ``read`` and ``write`` are thin wrappers
-over ``submit`` with an all-read or all-write batch.
+updated and gathered beside it. ``submit_array`` prices an (M, N)
+batch over an M-drive array (every leaf of the state with a leading
+``(M,)`` axis, one shared block store) in one pass of the same path, and
+``submit_striped`` deals a flat batch round-robin over the drives.
+Everything else is a thin wrapper:
 
-The array, striped and replicated entry points wait for ROADMAP A11; the
-stage-0 page cache for A13 (the pipeline rejects ``cache.enabled`` when
-it is built).
+    read / write                  homogeneous single-drive batches
+    read_array / write_array      per-drive (M, N) batches
+    read_striped                  flat batch striped over W <= M drives
+    read_replicated               least-loaded replica routing
+    write_replicated              replica fan-out, durable at the slowest
+
+The stage-0 page cache waits for ROADMAP A13 (the pipeline rejects
+``cache.enabled`` when it is built), the remote fabric for A12.
 """
 from __future__ import annotations
 
@@ -21,10 +29,20 @@ from typing import Tuple
 
 import torch
 
+import numpy as np
+
 from repro_torch.core import frontend
 from repro_torch.core.device import DevicePipeline, DeviceState
-from repro_torch.core.frontend import SQRings
-from repro_torch.core.segops import scatter_last, stable_argsort
+from repro_torch.core.device import init_array_state as _stack_states
+from repro_torch.core.frontend import SQRings, scatter_drop
+from repro_torch.core.qp import CQRings
+from repro_torch.core.segops import (
+    scatter_last,
+    segment_rank,
+    stable_argsort,
+    take,
+)
+from repro_torch.core.xla_math import lane_mean
 from repro_torch.core.types import (
     F32,
     I32,
@@ -61,6 +79,14 @@ class StorageClient:
         ``cfg`` exactly as ``engine_round`` prices with."""
         return ClientState(dev=self.pipeline.init_state(resolve_device(device)))
 
+    def init_array_state(self, num_devices: int,
+                         device: "torch.device | str | None" = None
+                         ) -> ClientState:
+        """Fresh stacked state of an M-drive array on ``device``: every
+        leaf with a leading ``(M,)`` axis."""
+        device = resolve_device(device)
+        return _stack_states(lambda _: self.init_state(device), num_devices)
+
     # -- the shared SQ -> pipeline -> CQ ring path --------------------------
     def _submit_through_rings(
         self,
@@ -72,9 +98,12 @@ class StorageClient:
         tenant: "torch.Tensor | None" = None,  # (N,) i32 QoS class
     ) -> Tuple[DeviceState, torch.Tensor]:
         """Post a flat batch as SQEs, fetch + process + reap via the CQs.
-        Returns (dev', done (N,) in the original request order)."""
+        Returns (dev', done (N,) in the original request order). An
+        array's state and (M, N) batch price each drive's row as that
+        drive alone; the ring capacity holds per drive."""
         cfg, plat, pipe = self.cfg, self.plat, self.pipeline
-        n = lba.shape[0]
+        n = lba.shape[-1]
+        lead = tuple(lba.shape[:-1])
         device = lba.device
         q, f = cfg.num_sqs, cfg.fetch_width
         if n > q * cfg.sq_depth:
@@ -86,25 +115,26 @@ class StorageClient:
         # Deal time-sorted requests across SQs; req_id carries the
         # original index so completions scatter back to request order.
         order = stable_argsort(t_submit)
-        sq_id = frontend.deal_sqs(n, cfg, device)
-        zeros = torch.zeros((n,), dtype=I32, device=device)
+        o = order.long()
+        sq_id = frontend.deal_sqs(n, cfg, device).expand(lead + (n,))
+        zeros = torch.zeros(lead + (n,), dtype=I32, device=device)
         if tenant is None:
             tenant = zeros
-        rings = SQRings.empty(q, cfg.sq_depth, device)
+        rings = SQRings.empty(q, cfg.sq_depth, device, lead)
         rings = frontend.submit(
-            rings, sq_id, t_submit[order], opcode[order], lba[order],
-            torch.ones((n,), dtype=I32, device=device), zeros,
-            order.to(I32), valid[order], tenant=tenant[order],
+            rings, sq_id, take(t_submit, o), take(opcode, o), take(lba, o),
+            torch.ones(lead + (n,), dtype=I32, device=device), zeros,
+            order.to(I32), take(valid, o), tenant=take(tenant, o),
         )
 
-        cq = pipe.init_cq(device)
+        cq = CQRings.empty(q, cfg.sq_depth, device, lead)
         row_unit = frontend.fetch_row_units(cfg, device)
-        clock = torch.amax(torch.where(valid, t_submit, 0.0))
-        done = torch.zeros((n,), dtype=F32, device=device)
+        clock = torch.amax(torch.where(valid, t_submit, 0.0), dim=-1)
+        done = torch.zeros(lead + (n,), dtype=F32, device=device)
         for _ in range(-(-n // (q * f))):  # ceil: fetch window per pass
             # Dispatchers poll again as soon as they are free (all
             # entries are already posted and visible).
-            clock = torch.maximum(clock, torch.amax(dev.disp_time))
+            clock = torch.maximum(clock, torch.amax(dev.disp_time, dim=-1))
             rings, disp_time, batch, fetch_done = frontend.fetch(
                 rings, clock, dev.disp_time, cfg, plat
             )
@@ -143,6 +173,87 @@ class StorageClient:
             flash = scatter_last(flash, dst, data)
         out = flash[torch.where(valid, lba, 0).long()] if with_data else None
         return ClientState(dev=dev), flash, out, done
+
+    def submit_array(
+        self,
+        state: ClientState,      # stacked: every leaf has a leading (M,) axis
+        flash: torch.Tensor,     # (num_blocks, block_words) — shared store
+        ops: StorageOps,         # (M, N) per-drive op batches
+        data: "torch.Tensor | None" = None,  # (M, N, block_words) payloads
+        with_data: bool = False,
+    ) -> Tuple[ClientState, torch.Tensor, "torch.Tensor | None",
+               torch.Tensor]:
+        """``submit`` over an M-drive array in one pass of the ring path:
+        each drive prices its own row of ``ops``; the functional scatter
+        and gather against the shared block store happen once for the
+        array (of several writes to one LBA the last in drive-major order
+        lands). Returns ``(state', flash', data_out, done)`` with ``done``
+        shaped (M, N)."""
+        m, n = ops.lba.shape
+        lba = ops.lba.to(I32)
+        dev, done = self._submit_through_rings(
+            state.dev, lba, ops.t_submit, ops.valid, ops.opcode, ops.tenant
+        )
+        if data is not None:
+            dst = torch.where(ops.valid & (ops.opcode == OP_WRITE), lba,
+                              flash.shape[0]).reshape(-1)
+            flash = scatter_last(
+                flash, dst, data.reshape((m * n,) + tuple(data.shape[2:])))
+        out = (flash[torch.where(ops.valid, lba, 0).long()] if with_data
+               else None)
+        return ClientState(dev=dev), flash, out, done
+
+    def submit_striped(
+        self,
+        state: ClientState,      # stacked array state (M drives)
+        flash: torch.Tensor,
+        ops: StorageOps,         # flat (N,) op batch — any N
+        data: "torch.Tensor | None" = None,  # (N, block_words) payloads
+        stripe_width: "int | None" = None,
+        with_data: bool = False,
+    ) -> Tuple[ClientState, torch.Tensor, "torch.Tensor | None",
+               torch.Tensor]:
+        """Stripe a flat op batch round-robin over the array's drives: op
+        i goes to drive ``i % W`` with ``W = stripe_width`` (default all M
+        drives); the other drives see an empty batch. A ragged tail is
+        padded with invalid slots, which never touch the rings or the
+        device; ``done`` and ``data_out`` come back in op order."""
+        m = _num_drives(state)
+        w = m if stripe_width is None else stripe_width
+        if not 1 <= w <= m:
+            raise ValueError(
+                f"stripe_width={w} must be in [1, M={m}] — a stripe "
+                "cannot span more drives than the array holds"
+            )
+        n = ops.lba.shape[0]
+        cols = -(-n // w)          # ceil: ring slots per striped drive
+        pad = cols * w - n
+
+        # (N, ...) -> (M, cols, ...): op i = stripe (i % W, i // W); the
+        # pad tail and the M - W unstriped drives are invalid slots.
+        def to_dev(x, fill):
+            rest = tuple(x.shape[1:])
+            x = torch.cat([x, x.new_full((pad,) + rest, fill)])
+            x = x.reshape((cols, w) + rest).transpose(0, 1)
+            if w < m:
+                x = torch.cat([x, x.new_full((m - w, cols) + rest, fill)])
+            return x.contiguous()
+
+        ops2d = StorageOps(
+            opcode=to_dev(ops.opcode, 0),
+            lba=to_dev(ops.lba.to(I32), 0),
+            t_submit=to_dev(ops.t_submit, 0.0),
+            tenant=to_dev(ops.tenant, 0),
+            valid=to_dev(ops.valid, False),
+        )
+        data2d = None if data is None else to_dev(data, 0)
+        state, flash, _, done2d = self.submit_array(
+            state, flash, ops2d, data=data2d
+        )
+        done = done2d[:w].transpose(0, 1).reshape(cols * w)[:n]
+        out = (flash[torch.where(ops.valid, ops.lba, 0).long()] if with_data
+               else None)
+        return state, flash, out, done
 
     # -- thin wrappers over submit -------------------------------------------
     def read(
@@ -184,3 +295,217 @@ class StorageClient:
         )
         state, flash, _, done = self.submit(state, flash, ops, data=data)
         return state, flash, done
+
+    def read_array(
+        self,
+        state: ClientState,      # stacked: every leaf has a leading (M,) axis
+        flash: torch.Tensor,     # (num_blocks, block_words) — shared store
+        lba: torch.Tensor,       # (M, N) i32 per-drive block addresses
+        t_submit: "torch.Tensor | float" = 0.0,   # (), (M,) or (M, N) f32
+        valid: "torch.Tensor | None" = None,      # (M, N) bool
+        with_data: bool = True,
+        tenant: "torch.Tensor | int" = 0,   # scalar or (M, N) i32
+    ) -> Tuple[ClientState, "torch.Tensor | None", torch.Tensor]:
+        """Per-drive batched reads over an M-drive array: ``submit_array``
+        with an all-read batch."""
+        ops = StorageOps.make(lba, _per_drive(t_submit, lba), tenant=tenant,
+                              valid=valid)
+        state, _, data, done = self.submit_array(
+            state, flash, ops, with_data=with_data
+        )
+        return state, data, done
+
+    def write_array(
+        self,
+        state: ClientState,      # stacked: every leaf has a leading (M,) axis
+        flash: torch.Tensor,     # (num_blocks, block_words) — shared store
+        data: torch.Tensor,      # (M, N, block_words) per-drive payloads
+        lba: torch.Tensor,       # (M, N) i32 per-drive block addresses
+        t_submit: "torch.Tensor | float" = 0.0,   # (), (M,) or (M, N) f32
+        valid: "torch.Tensor | None" = None,      # (M, N) bool
+        tenant: "torch.Tensor | int" = 0,   # scalar or (M, N) i32
+    ) -> Tuple[ClientState, torch.Tensor, torch.Tensor]:
+        """Per-drive batched writes over an M-drive array: ``submit_array``
+        with an all-write batch. Each drive prices its share on its own
+        dies and GC state; the blocks land once in the shared store."""
+        ops = StorageOps.make(lba, _per_drive(t_submit, lba),
+                              opcode=OP_WRITE, tenant=tenant, valid=valid)
+        state, flash, _, done = self.submit_array(
+            state, flash, ops, data=data
+        )
+        return state, flash, done
+
+    def read_striped(
+        self,
+        state: ClientState,      # stacked array state (M drives)
+        flash: torch.Tensor,
+        lba: torch.Tensor,       # (N,) i32 — any N
+        t_submit: "torch.Tensor | float" = 0.0,   # () or (N,) f32
+        valid: "torch.Tensor | None" = None,
+        stripe_width: "int | None" = None,
+        tenant: "torch.Tensor | int" = 0,   # () or (N,) i32
+    ) -> Tuple[ClientState, torch.Tensor, torch.Tensor]:
+        """A flat read batch striped round-robin over the array's drives:
+        ``submit_striped`` with an all-read batch."""
+        ops = StorageOps.make(lba, t_submit, tenant=tenant, valid=valid)
+        state, _, data, done = self.submit_striped(
+            state, flash, ops, stripe_width=stripe_width, with_data=True
+        )
+        return state, data, done
+
+    def _replica_grid(self, m: int, n: int, drive: torch.Tensor,
+                      valid: torch.Tensor, width: int):
+        """Each request's (drive, slot) cell in an (M, n) per-drive grid:
+        a drive's requests fill its slots in request order; invalid ones
+        get slot ``width`` (dropped)."""
+        rank = segment_rank(drive)
+        row = torch.clamp(drive, 0, m - 1)
+        col = torch.where(valid, rank, width)
+
+        def scat(x, fill):
+            base = torch.full((m, n), fill, dtype=x.dtype, device=x.device)
+            return scatter_drop(base, row, col, x)
+
+        def back(grid):
+            return grid[row.long(), torch.clamp(col, 0, n - 1).long()]
+
+        return scat, back
+
+    def read_replicated(
+        self,
+        state: ClientState,      # stacked array state (M drives)
+        flash: torch.Tensor,
+        lba: torch.Tensor,       # (N,) i32 — any N
+        t_submit: "torch.Tensor | float" = 0.0,   # () or (N,) f32
+        valid: "torch.Tensor | None" = None,
+        replicas: int = 2,
+        tenant: "torch.Tensor | int" = 0,   # () or (N,) i32
+    ) -> Tuple[ClientState, torch.Tensor, torch.Tensor]:
+        """Replica reads over an M-drive array, least-loaded routing.
+        Block b's R replicas live on drives ``(b + r) % M`` (chained
+        declustering); each read goes, in request order, to the candidate
+        with the least load: the drive's mean instance backlog plus one
+        service slot (``1e6 / t_max_iops`` us) per read already routed to
+        it in this batch (the first such candidate on a tie). The drives
+        are local, so no fabric cursor adds to the load. Returns (state',
+        data, done) in request order."""
+        m = _num_drives(state)
+        if not 1 <= replicas <= m:
+            raise ValueError(
+                f"replicas={replicas} must be in [1, M={m}] — a block "
+                "cannot have more replicas than the array has drives"
+            )
+        n = lba.shape[0]
+        device = lba.device
+        lba = lba.to(I32)
+        if valid is None:
+            valid = torch.ones((n,), dtype=torch.bool, device=device)
+        t_submit = _fan(t_submit, (n,), F32, device)
+
+        load = lane_mean(state.dev.tstate.busy_until)
+        est = torch.full((1,), float(np.float32(1e6 / self.ssd.t_max_iops)),
+                         dtype=F32, device=device)
+        cand = torch.remainder(
+            lba[:, None] + torch.arange(replicas, dtype=I32, device=device),
+            m)                                               # (N, R)
+        # The routing is a sequential scan (each pick sees the load of
+        # the earlier picks), one small step a request.
+        drive = torch.full((n,), m, dtype=I32, device=device)
+        for i in range(n):
+            ci = cand[i].long()
+            d = ci[torch.argmin(load[ci])]
+            load = torch.where(valid[i], load.index_add(0, d[None], est),
+                               load)
+            drive[i] = torch.where(valid[i], d.to(I32), m)
+
+        scat, back = self._replica_grid(m, n, drive, valid, n)
+        tenant = _fan(tenant, (n,), I32, device)
+        state, _, done2d = self.read_array(
+            state, flash, scat(lba, 0), scat(t_submit, 0.0),
+            scat(valid, False), with_data=False, tenant=scat(tenant, 0),
+        )
+        done = torch.where(valid, back(done2d), 0.0)
+        data = flash[torch.where(valid, lba, 0).long()]
+        return state, data, done
+
+    def write_replicated(
+        self,
+        state: ClientState,      # stacked array state (M drives)
+        flash: torch.Tensor,
+        data: torch.Tensor,      # (N, block_words) blocks to persist
+        lba: torch.Tensor,       # (N,) i32 — any N
+        t_submit: "torch.Tensor | float" = 0.0,   # () or (N,) f32
+        valid: "torch.Tensor | None" = None,
+        replicas: int = 2,
+        tenant: "torch.Tensor | int" = 0,   # () or (N,) i32
+    ) -> Tuple[ClientState, torch.Tensor, torch.Tensor]:
+        """Replica-write fan-out over an M-drive array: block b's R
+        replicas live on drives ``(b + r) % M``, every write goes to all
+        of them, and it completes when the slowest replica has (the max
+        over its R completions). Each drive prices its share; the block
+        lands once in the shared store. Returns (state', flash', done)
+        in request order."""
+        m = _num_drives(state)
+        if not 1 <= replicas <= m:
+            raise ValueError(
+                f"replicas={replicas} must be in [1, M={m}] — a block "
+                "cannot have more replicas than the array has drives"
+            )
+        n, r = lba.shape[0], replicas
+        device = lba.device
+        lba = lba.to(I32)
+        if valid is None:
+            valid = torch.ones((n,), dtype=torch.bool, device=device)
+        t_submit = _fan(t_submit, (n,), F32, device)
+        tenant = _fan(tenant, (n,), I32, device)
+
+        # (N, R) candidate drives, request-major, so each drive's slots
+        # fill in request order; a request's R candidates are distinct
+        # (R <= M), so an (M, N) grid holds the whole fan-out.
+        cand = torch.remainder(
+            lba[:, None] + torch.arange(r, dtype=I32, device=device), m)
+        valid_rep = valid.repeat_interleave(r)
+        drive = torch.where(valid_rep, cand.reshape(-1), m).to(I32)
+        scat, back = self._replica_grid(m, n, drive, valid_rep, n * r)
+
+        def rep(x):
+            return x.repeat_interleave(r)
+
+        ops2d = StorageOps(
+            opcode=torch.full((m, n), OP_WRITE, dtype=I32, device=device),
+            lba=scat(rep(lba), 0), t_submit=scat(rep(t_submit), 0.0),
+            tenant=scat(rep(tenant), 0), valid=scat(valid_rep, False),
+        )
+        state, _, _, done2d = self.submit_array(state, flash, ops2d)
+        done_rep = back(done2d).reshape(n, r)
+        done = torch.where(valid, torch.amax(done_rep, dim=1), 0.0)
+        # One copy per request in the shared store: the fan-out is a
+        # device-time matter.
+        dst = torch.where(valid, lba, flash.shape[0])
+        flash = scatter_last(flash, dst, data)
+        return state, flash, done
+
+
+def _num_drives(state: ClientState) -> int:
+    """M of a stacked array state."""
+    if state.dev.lock_time.dim() != 1:
+        raise ValueError("an array entry point takes a stacked state with a "
+                         "leading (M,) axis (StorageClient.init_array_state)")
+    return state.dev.lock_time.shape[0]
+
+
+def _fan(x: "torch.Tensor | float | int", shape, dtype, device
+         ) -> torch.Tensor:
+    """A scalar or tensor broadcast to ``shape`` on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, dtype).expand(shape)
+    return torch.full(shape, x, dtype=dtype, device=device)
+
+
+def _per_drive(t_submit: "torch.Tensor | float", lba: torch.Tensor
+               ) -> "torch.Tensor | float":
+    """An (M,) submission clock as one column a drive; anything else as
+    it is (``StorageOps.make`` broadcasts it)."""
+    if isinstance(t_submit, torch.Tensor) and t_submit.dim() == 1:
+        return t_submit.to(lba.device, F32)[:, None]
+    return t_submit

@@ -11,6 +11,10 @@ within a round, random LBAs collide). The reference's scatter keeps the
 last row for each destination; PyTorch leaves the winner of a duplicate
 scatter undefined on the card, so the port picks the last valid row per
 destination explicitly and scatters only the winners.
+
+An array's drives each carry their own flash table, (M, num_blocks, W),
+and buffers, (M, num_bufs, W); every function here takes one drive's
+tensors or an array's, with a leading ``(M,)`` axis on each.
 """
 from __future__ import annotations
 
@@ -24,8 +28,11 @@ from repro_torch.core.segops import (
     queueing_scan,
     scatter_last,
     segment_max,
+    segment_heads,
     segment_rank,
     stable_argsort,
+    take,
+    take_rows,
     true_div,
     unsort,
 )
@@ -51,8 +58,8 @@ def apply_reads(
 
         data = kops.block_gather(flash, src)
     else:
-        data = flash[src.clamp(0, flash.shape[0] - 1).long()]
-    dst = torch.where(is_read, batch.buf_id, bufs.shape[0])
+        data = take_rows(flash, src.clamp(0, flash.shape[-2] - 1))
+    dst = torch.where(is_read, batch.buf_id, bufs.shape[-2])
     return scatter_last(bufs, dst, data)
 
 
@@ -62,8 +69,8 @@ def apply_writes(
     """Copy bufs[buf_id] into flash[lba] for valid write requests."""
     is_write = batch.valid & (batch.opcode == 1)
     src = torch.where(is_write, batch.buf_id, 0)
-    data = bufs[src.clamp(0, bufs.shape[0] - 1).long()]
-    dst = torch.where(is_write, batch.lba, flash.shape[0])
+    data = take_rows(bufs, src.clamp(0, bufs.shape[-2] - 1))
+    dst = torch.where(is_write, batch.lba, flash.shape[-2])
     return scatter_last(flash, dst, data)
 
 
@@ -85,8 +92,9 @@ def baseline_worker_times(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """NVMeVirt backend: a global map/unmap queue feeding W copy lanes per
     unit. Returns (work_time', map_time', ready)."""
-    u, w = work_time.shape
-    n = fetch_done.shape[0]
+    u, w = work_time.shape[-2:]
+    lead = tuple(work_time.shape[:-2])
+    n = fetch_done.shape[-1]
     dev = fetch_done.device
     pallas = cfg.resolve_pallas_segscan(ssd, plat)
     txn, bw = _p2p(cfg, plat)
@@ -104,34 +112,34 @@ def baseline_worker_times(
         batch.valid, float(np.float32(plat.per_req_map_us)), 0.0
     )
     heads0 = idx == 0
-    seed0 = map_time.expand(n)
+    seed0 = map_time[..., None].expand(lead + (n,))
     mapped = queueing_scan(
         fetch_done, map_cost, heads0, seed0, use_pallas=pallas
     )
-    new_map = torch.maximum(torch.amax(mapped), map_time)
+    new_map = torch.maximum(torch.amax(mapped, dim=-1), map_time)
 
     # -- per-lane p2p copy after mapping.
     cost = txn + true_div(_bytes(batch, ssd), bw)
     cost = torch.where(batch.valid, cost, 0.0)
-    lane = unit * w + torch.remainder(rank_in_unit, w)
+    lane = (unit * w + torch.remainder(rank_in_unit, w)).expand(
+        lead + (n,))
     if use_counting_sort:
         plan = counting_sort_plan(lane, u * w)
         order, heads = plan.order, plan.heads
     else:
-        order = stable_argsort(lane)
-        s_lane = lane[order.long()]
-        heads = torch.cat([
-            torch.ones((1,), dtype=torch.bool, device=dev),
-            s_lane[1:] != s_lane[:-1],
-        ])
+        order, heads = stable_argsort(lane), None
     o = order.long()
-    s_lane = lane[o]
-    seed = work_time.reshape(-1)[s_lane.long()]
-    busy = queueing_scan(mapped[o], cost[o], heads, seed, use_pallas=pallas)
+    s_lane = take(lane, o)
+    if heads is None:
+        heads = segment_heads(s_lane)
+    lanes = work_time.reshape(lead + (u * w,))
+    seed = take(lanes, s_lane)
+    busy = queueing_scan(take(mapped, o), take(cost, o), heads, seed,
+                         use_pallas=pallas)
     ready = unsort(busy, order)
 
     new_work = segment_max(busy, s_lane, u * w)
-    new_work = torch.maximum(new_work, work_time.reshape(-1)).reshape(u, w)
+    new_work = torch.maximum(new_work, lanes).reshape(work_time.shape)
     return new_work, new_map, torch.where(batch.valid, ready, 0.0)
 
 
@@ -147,8 +155,8 @@ def dsa_worker_times(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SwarmIO backend: batched async DSA offload, a pipelined single
     server per unit at ``dsa_bytes_per_us``. Returns (dsa_time', ready)."""
-    u = dsa_time.shape[0]
-    n = fetch_done.shape[0]
+    u = dsa_time.shape[-1]
+    n = fetch_done.shape[-1]
     dev = fetch_done.device
     issue = plat.dsa_desc_issue_us + plat.dsa_batch_setup_us / dsa_batch_size
     ready_in = fetch_done + issue
@@ -158,10 +166,8 @@ def dsa_worker_times(
     if unit is None:
         unit = torch.div(torch.arange(n, dtype=I32, device=dev), n // u,
                          rounding_mode="floor")
-    heads = torch.cat([
-        torch.ones((1,), dtype=torch.bool, device=dev), unit[1:] != unit[:-1]
-    ])
-    seed = dsa_time[unit.long()]
+    heads = segment_heads(unit)
+    seed = take(dsa_time, unit)
     busy = queueing_scan(ready_in, cost, heads, seed)
 
     new_dsa = segment_max(busy, unit, u)

@@ -17,11 +17,12 @@ at run time — each with the ROADMAP item that will bring it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.cuda_graph import map_leaves
 from repro_torch.core import datapath, qp, segops, timing
 from repro_torch.core.epoch import Epoch
 from repro_torch.core.fabric import FabricState
@@ -69,7 +70,7 @@ class DeviceState:
 
     @property
     def num_units(self) -> int:
-        return self.disp_time.shape[0]
+        return self.disp_time.shape[-1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +96,8 @@ def acquire_lock(
     index (program) order: ``done_u = max(t, ready_u) + cost_u``, folded
     unit by unit exactly as the reference's sequential scan. The cost is
     per request (the per-request baseline: every request takes the lock)
-    or per batch (aggregated mode). Returns ``(lock_time', lock_done (U,),
+    or per batch (aggregated mode); an array's drives each hold their own
+    lock (``lock_time`` (M,)). Returns ``(lock_time', lock_done (U,),
     None)`` — no acquisition permutation in program order."""
     n_valid_u = epoch.unit_counts(num_units)
     batch_ready = epoch.unit_ready(num_units)
@@ -108,9 +110,25 @@ def acquire_lock(
     t = lock_time
     grants = []
     for u in range(num_units):
-        t = torch.maximum(t, batch_ready[u]) + cost[u]
+        t = torch.maximum(t, batch_ready[..., u]) + cost[..., u]
         grants.append(t)
-    return t, torch.stack(grants), None
+    return t, torch.stack(grants, dim=-1), None
+
+
+def init_array_state(init_fn: Callable[[int], object], num_devices: int):
+    """Stacked per-drive state with a leading ``(M,)`` axis on every leaf.
+
+    ``init_fn(salt)`` builds one drive's state tree (frozen dataclasses of
+    tensors) for drive index ``salt``; the M trees, built with salts
+    0..M-1, are stacked leaf by leaf. Salt-aware initializers (the
+    engine's workload prefill) give distinct per-drive streams,
+    salt-oblivious ones identical drives. ``engine.init_array_state`` and
+    ``StorageClient.init_array_state`` are thin adapters over it.
+    """
+    if num_devices < 1:
+        raise ValueError(f"num_devices={num_devices} must be >= 1")
+    trees = [init_fn(d) for d in range(num_devices)]
+    return map_leaves(lambda *xs: torch.stack(xs), *trees)
 
 
 _UNPORTED = (
@@ -170,10 +188,13 @@ class DevicePipeline:
         flash backend and the CQ completion path. ``ring_layout=True``
         promises the SQ-major fixed-width layout of the ring gather (so
         the compaction path may use block reductions); ``cq=None`` skips
-        stage 5."""
+        stage 5. An array's state and batch carry a leading ``(M,)`` drive
+        axis on every leaf (``unit`` may stay (N,), shared by the drives);
+        each drive is priced as a call on its own would price it."""
         cfg, ssd, plat = self.cfg, self.ssd, self.plat
         u = state.num_units
         valid = batch.valid
+        unit = unit.expand(valid.shape)
 
         compact = cfg.use_compaction
         blocky = compact and ring_layout

@@ -13,6 +13,13 @@ round on static state buffers; on the CPU it runs the eager loop. No
 round reads a value back to the host. Entry points run on ``cuda`` unless
 the caller names a device, and raise when no card is present and none was
 named.
+
+An M-drive array (``init_array_state``, ``make_array_runner``,
+``simulate(num_devices=M)``) is the same round on a state whose every
+leaf has a leading ``(M,)`` drive axis, where the reference vmaps: each
+stage reduces, scans, gathers and scatters per drive, so drive d's leaves
+are bit for bit those of a single drive of salt d, and one array round is
+one CUDA graph whose engine kernels launch once each for all M drives.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 from repro_torch import cuda_graph
 from repro_torch.core import datapath, frontend, segops
 from repro_torch.core.device import DevicePipeline, DeviceState, check_ported
+from repro_torch.core.device import init_array_state as init_array_state_of
 from repro_torch.core.frontend import SQRings
 from repro_torch.core.qp import CQRings
 from repro_torch.core.segops import segment_sum
@@ -92,21 +100,23 @@ def hist_percentile(hist: torch.Tensor, q: float) -> torch.Tensor:
 
 
 def _sum(vals: torch.Tensor) -> torch.Tensor:
-    """A round's float32 latency sum, accumulated in double and rounded
-    once. The n terms are latencies (not negative), so any order of
-    double additions lands within n * 2^-53 of the exact sum, relative
-    (2^-40 at ``local_1drive``'s 8192 rows); the card (a tree) and the
-    CPU (another order) then round to the same float32 unless the exact
-    sum lies that close to a float32 rounding midpoint."""
-    return torch.sum(vals, dtype=torch.float64).to(F32)
+    """A round's float32 latency sum per drive (over the last axis),
+    accumulated in double and rounded once. The n terms are latencies
+    (not negative), so any order of double additions lands within
+    n * 2^-53 of the exact sum, relative (2^-40 at ``local_1drive``'s 8192
+    rows); the card (a tree) and the CPU (another order) then round to the
+    same float32 unless the exact sum lies that close to a float32
+    rounding midpoint."""
+    return torch.sum(vals, dim=-1, dtype=torch.float64).to(F32)
 
 
 def _group_sum(vals: torch.Tensor, seg: torch.Tensor, k: int) -> torch.Tensor:
-    """Per-group float sum as ``_sum`` (a masked row sum — no atomics,
-    whose order varies on the card)."""
+    """Per-group float sum as ``_sum``, (..., k) (a masked row sum — no
+    atomics, whose order varies on the card)."""
     groups = torch.arange(k, dtype=seg.dtype, device=seg.device)
-    return torch.where(seg[None, :] == groups[:, None], vals[None, :],
-                       0.0).sum(dim=1, dtype=torch.float64).to(F32)
+    return torch.where(seg[..., None, :] == groups[:, None],
+                       vals[..., None, :], 0.0).sum(
+        dim=-1, dtype=torch.float64).to(F32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +171,9 @@ class Metrics:
 
 @dataclasses.dataclass(frozen=True)
 class EngineState:
+    """One drive's state, or an M-drive array's with a leading ``(M,)``
+    axis on every leaf (``init_array_state``)."""
+
     rings: SQRings              # submission half of the queue pairs
     cq: CQRings                 # completion half (SQ q pairs with CQ q)
     device: DeviceState         # the pipeline's virtual-time state
@@ -237,17 +250,22 @@ def engine_round(
     wl: "Workload | WorkloadConfig",
     plat: PlatformModel,
 ) -> EngineState:
+    """One round of one drive, or of every drive of an array (a leading
+    ``(M,)`` axis on every leaf): each drive's leaves come out as a round
+    of that drive alone would leave them, and each engine kernel launches
+    once for all the drives."""
     wl = as_workload(wl)
     pipe = DevicePipeline(cfg, ssd, plat)
     q, f = cfg.num_sqs, cfg.fetch_width
     device = state.clock.device
+    lead = tuple(state.clock.shape)
 
     # -- 1. frontend fetch ---------------------------------------------------
     rings, disp_time, batch, fetch_done = frontend.fetch(
         state.rings, state.clock, state.device.disp_time, cfg, plat
     )
     submit_t = batch.arrival                       # provisional = submit time
-    n = batch.valid.shape[0]
+    n = batch.valid.shape[-1]
     unit = frontend.fetch_row_units(cfg, device)
 
     # -- 2-5. the device pipeline (timing + data path + flash + QP) ----------
@@ -263,16 +281,16 @@ def engine_round(
     e2e = torch.where(valid, done - submit_t, 0.0)
     tgt_lat = torch.where(valid, res.target - res.arrival, 0.0)
     proc = torch.where(valid, res.ready - res.arrival, 0.0)
-    nvalid = torch.sum(valid_f)
+    nvalid = torch.sum(valid_f, dim=-1)
     bucket = latency_bucket(e2e)
     lat_hist = segment_sum(valid_f, bucket, HIST_BUCKETS)
-    n_ten = state.metrics.tenant_completed.shape[0]
+    n_ten = state.metrics.tenant_completed.shape[-1]
     t_bucket = torch.clamp(batch.tenants, 0, n_ten - 1)
     tenant_completed = segment_sum(valid_f, t_bucket, n_ten)
     tenant_sum_e2e = _group_sum(e2e, t_bucket, n_ten)
     tenant_lat_hist = segment_sum(
         valid_f, t_bucket * HIST_BUCKETS + bucket, n_ten * HIST_BUCKETS
-    ).reshape(n_ten, HIST_BUCKETS)
+    ).reshape(lead + (n_ten, HIST_BUCKETS))
 
     # -- functional data movement --------------------------------------------
     flash, bufs = state.flash, state.bufs
@@ -281,16 +299,18 @@ def engine_round(
         flash = datapath.apply_writes(flash, bufs, batch)
 
     # -- workload-driven resubmission ----------------------------------------
+    salt = state.salt[..., None]
     sqs = torch.arange(q, dtype=I32, device=device)
     tenant_rows = torch.repeat_interleave(
-        wl.tenant_of_sq(sqs, cfg, state.salt), f
-    )
-    new_req = state.req_counter + torch.arange(n, dtype=I32, device=device)
-    new_lba = wl.address(new_req, ssd, state.salt)
-    new_op = wl.opcode(new_req, state.salt, tenant=tenant_rows)
-    anchor = torch.repeat_interleave(state.last_submit, f)
+        wl.tenant_of_sq(sqs, cfg, salt), f
+    ).expand(lead + (n,))
+    new_req = state.req_counter[..., None] + torch.arange(
+        n, dtype=I32, device=device)
+    new_lba = wl.address(new_req, ssd, salt)
+    new_op = wl.opcode(new_req, salt, tenant=tenant_rows)
+    anchor = torch.repeat_interleave(state.last_submit, f, dim=-1)
     resub_t, resub_valid = wl.next_submit(
-        new_req, done, valid, anchor, cfg, ssd, state.salt
+        new_req, done, valid, anchor, cfg, ssd, salt
     )
 
     m = state.metrics
@@ -301,10 +321,12 @@ def engine_round(
         sum_target=m.sum_target + _sum(tgt_lat),
         sum_proc=m.sum_proc + _sum(proc),
         last_completion=torch.maximum(
-            m.last_completion, torch.amax(torch.where(valid, done, 0.0))
+            m.last_completion,
+            torch.amax(torch.where(valid, done, 0.0), dim=-1),
         ),
         first_submit=torch.minimum(
-            m.first_submit, torch.amin(torch.where(valid, submit_t, FAR))
+            m.first_submit,
+            torch.amin(torch.where(valid, submit_t, FAR), dim=-1),
         ),
         lat_hist=m.lat_hist + lat_hist,
         cache_hits=m.cache_hits,
@@ -317,22 +339,24 @@ def engine_round(
     last_submit = torch.maximum(
         state.last_submit,
         torch.amax(
-            torch.where(resub_valid, resub_t, 0.0).reshape(q, f), dim=1
+            torch.where(resub_valid, resub_t, 0.0).reshape(lead + (q, f)),
+            dim=-1,
         ),
     )
     # Rows are SQ-major (q, f); sort each SQ's resubmissions by time.
-    rt = resub_t.reshape(q, f)
-    order = segops.stable_argsort(rt, dim=1).long()
+    rt = resub_t.reshape(lead + (q, f))
+    order = segops.stable_argsort(rt, dim=-1).long()
 
     def pick(x):
-        return torch.gather(x.reshape(q, f), 1, order)
+        return torch.gather(x.expand(lead + (n,)).reshape(lead + (q, f)), -1,
+                            order)
 
     rings = frontend.submit_grouped(
         rings,
         pick(resub_t),
         pick(new_op),
         pick(new_lba),
-        torch.ones((q, f), dtype=I32, device=device),
+        torch.ones(lead + (q, f), dtype=I32, device=device),
         pick(batch.buf_id),
         pick(new_req),
         pick(resub_valid),
@@ -341,11 +365,11 @@ def engine_round(
     )
 
     # -- clock advance: one poll quantum, or a jump over an idle gap to the
-    # earliest pending submission.
-    dpos = torch.remainder(rings.head, rings.depth).long()
-    head_t = rings.submit_time[sqs.long(), dpos]
+    # earliest pending submission (each drive its own).
+    dpos = torch.remainder(rings.head, rings.depth)
+    head_t = segops.take(rings.submit_time, dpos[..., None])[..., 0]
     head_t = torch.where(rings.tail > rings.head, head_t, FAR)
-    nxt = torch.amin(head_t)
+    nxt = torch.amin(head_t, dim=-1)
     stepped = state.clock + float(np.float32(cfg.poll_quantum_us))
     clock = torch.where(nxt < FAR, torch.maximum(stepped, nxt), stepped)
 
@@ -451,9 +475,61 @@ def make_runner(
     return runner
 
 
+def make_array_runner(
+    cfg: EngineConfig, ssd: SSDConfig, wl, plat: PlatformModel,
+    rounds: int, donate: bool = False,
+    device: "torch.device | str | None" = None,
+) -> Callable[[EngineState], EngineState]:
+    """The M-drive array runner: ``make_runner``'s contract for a stacked
+    state (``init_array_state``: a leading ``(M,)`` axis on every leaf).
+
+    The reference vmaps ``run`` over the drives; here every stage works on
+    the drive axis itself, so one ``engine_round`` prices all M drives,
+    each as it would be priced alone, and each engine kernel launches once
+    a round for the whole array. On a card one array round is one captured
+    CUDA graph, replayed ``rounds`` times; ``donate`` as in
+    ``make_runner``."""
+    runner = make_runner(cfg, ssd, wl, plat, rounds, donate, device)
+
+    def array_runner(states: EngineState) -> EngineState:
+        if states.clock.dim() != 1:
+            raise ValueError(
+                "make_array_runner takes a stacked state with a leading "
+                f"(M,) axis; its clock is {tuple(states.clock.shape)}")
+        return runner(states)
+
+    array_runner.runner = runner
+    return array_runner
+
+
+def init_array_state(
+    cfg: EngineConfig,
+    ssd: SSDConfig,
+    wl: "Workload | WorkloadConfig",
+    num_devices: int,
+    block_words: int = 16,
+    device: "torch.device | str | None" = None,
+) -> EngineState:
+    """Stacked ``EngineState`` of an M-drive array on ``device`` (``cuda``
+    unless named): a leading ``(M,)`` axis on every leaf, drive d built by
+    ``init_state`` with salt d, so salt-aware generators (closed loop,
+    Poisson, Zipf) serve M independent request streams. A fixed-trace
+    replay is striped through ``Workload.sharded``: drive d replays the
+    time-sorted rows i with ``i % M == d``."""
+    device = resolve_device(device)
+    wl = as_workload(wl).sharded(num_devices)
+    return init_array_state_of(
+        lambda salt: init_state(cfg, ssd, wl, block_words, salt=salt,
+                                device=device),
+        num_devices,
+    )
+
+
 def aggregate_iops(state: EngineState) -> torch.Tensor:
-    """Virtual IOPS of the emulated drive (one drive in this port)."""
-    return torch.sum(state.metrics.iops())
+    """Virtual IOPS of the drive, or of the array: the sum of the drives'
+    sustained rates, accumulated in double and rounded once (as ``_sum``),
+    so that the card and the CPU give one float32 whatever their order."""
+    return torch.sum(state.metrics.iops(), dtype=torch.float64).to(F32)
 
 
 def simulate(
@@ -466,13 +542,18 @@ def simulate(
     num_devices: int = 1,
     device: "torch.device | str | None" = None,
 ) -> EngineState:
-    """Convenience: init + run on ``device``. Returns the final state."""
-    if num_devices != 1:
-        raise NotImplementedError(
-            "num_devices > 1 (the multi-drive array) is not ported yet "
-            "(ROADMAP A11)"
-        )
+    """Convenience: init + run on ``device``. Returns the final state.
+
+    With ``num_devices=M > 1`` the state has a leading (M,) axis on every
+    leaf (an emulated M-drive array in one program); the array's
+    throughput is ``aggregate_iops(state)``, and the histogram
+    percentiles already pool the drives."""
     plat = plat or PlatformModel()
     device = resolve_device(device)
-    state = init_state(cfg, ssd, wl, block_words, device=device)
-    return make_runner(cfg, ssd, wl, plat, rounds, device=device)(state)
+    if num_devices == 1:
+        state = init_state(cfg, ssd, wl, block_words, device=device)
+        return make_runner(cfg, ssd, wl, plat, rounds, device=device)(state)
+    states = init_array_state(cfg, ssd, wl, num_devices, block_words,
+                              device=device)
+    return make_array_runner(cfg, ssd, wl, plat, rounds,
+                             device=device)(states)

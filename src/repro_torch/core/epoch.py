@@ -6,7 +6,8 @@ for the global timing lock (``device.acquire_lock``) and the timing
 model. ``layout == "ring"`` promises the SQ-major fixed-width row blocks
 of ``frontend._gather_entries`` (units are contiguous ``N // U`` slabs),
 which turns per-unit reductions into reshapes; ``"direct"`` uses
-segmented forms on the non-decreasing ``unit`` key.
+segmented forms on the non-decreasing ``unit`` key. Every tensor may
+carry a leading ``(M,)`` drive axis (an array's epochs, one a drive).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.segops import segment_max, segment_sum, take
 from repro_torch.core.types import I32, RequestBatch
 
 
@@ -50,26 +52,26 @@ class Epoch:
         """(U,) valid-request count per unit (exact integer reduction)."""
         v = self.valid.to(I32)
         if self.is_ring:
-            return torch.sum(v.reshape(num_units, -1), dim=1, dtype=I32)
-        out = torch.zeros((num_units,), dtype=I32, device=v.device)
-        return out.index_add_(0, self.unit.long(), v)
+            return torch.sum(v.reshape(self._per_unit(num_units)), dim=-1,
+                             dtype=I32)
+        return segment_sum(v, self.unit, num_units)
+
+    def _per_unit(self, num_units: int):
+        return tuple(self.valid.shape[:-1]) + (num_units, -1)
 
     def unit_ready(self, num_units: int) -> torch.Tensor:
         """(U,) batch ready time per unit: the max over its valid rows
         (empty units reduce to 0)."""
         masked = torch.where(self.valid, self.ready, 0.0)
         if self.is_ring:
-            return torch.amax(masked.reshape(num_units, -1), dim=1)
-        out = torch.full((num_units,), float("-inf"), dtype=masked.dtype,
-                         device=masked.device)
-        return out.scatter_reduce_(
-            0, self.unit.long(), masked, "amax", include_self=True
-        )
+            return torch.amax(masked.reshape(self._per_unit(num_units)),
+                              dim=-1)
+        return segment_max(masked, self.unit, num_units)
 
     def admit(self, lock_done: torch.Tensor) -> "Epoch":
         """``arrival = max(ready, lock_done[unit])``: a row dispatches once
         its unit holds the lock and its own frame has landed."""
         return dataclasses.replace(
             self,
-            arrival=torch.maximum(self.ready, lock_done[self.unit.long()]),
+            arrival=torch.maximum(self.ready, take(lock_done, self.unit)),
         )

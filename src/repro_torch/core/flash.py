@@ -10,7 +10,9 @@ below the watermark. One ``flash_stage`` call prices a whole epoch; with
 The die contention runs in one of three layouts, all giving the same
 times on integer-valued timestamps: the stable die sort (reference), the
 counting-sort layout (``use_counting_sort``), and the ``die_contention``
-kernel (``use_pallas_flash``), a sequential per-die fold.
+kernel (``use_pallas_flash``), a sequential per-die fold. An array's
+drives each have their own dies and page pool: every tensor may carry a
+leading ``(M,)`` axis.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.core.segops import (
     queueing_scan,
     sort_by_segment,
     segment_max,
+    take,
     true_div,
     uniform01,
     unsort,
@@ -71,7 +74,7 @@ class FlashState:
 
     @property
     def num_chips(self) -> int:
-        return self.chip_busy.shape[0]
+        return self.chip_busy.shape[-1]
 
 
 def chip_of(lba: torch.Tensor, ssd: SSDConfig) -> torch.Tensor:
@@ -95,7 +98,7 @@ def mapping_miss(
     salt = (
         u32(batch.req_id)
         + ((u32(batch.lba) * 0x85EBCA6B) & _U32)
-        + ((u32(fstate.io_seq) * 0x9E3779B9) & _U32)
+        + ((u32(fstate.io_seq[..., None]) * 0x9E3779B9) & _U32)
     ) & _U32
     h = hash_u32(salt)
     return is_read & (uniform01(h) >= _f32(ssd.mapping_hit_rate))
@@ -121,8 +124,9 @@ def flash_stage(
     # Reads go where the data lives; writes are placed log-structured,
     # round-robin across dies from the ``prog_seq`` cursor.
     chip = chip_of(batch.lba, ssd)
-    w_rank = torch.cumsum(is_write.to(I32), 0, dtype=I32) - 1
-    w_chip = torch.remainder(fstate.prog_seq + torch.clamp(w_rank, min=0), k)
+    w_rank = torch.cumsum(is_write.to(I32), -1, dtype=I32) - 1
+    w_chip = torch.remainder(
+        fstate.prog_seq[..., None] + torch.clamp(w_rank, min=0), k)
     chip = torch.where(is_write, w_chip, chip)
     cost = torch.where(is_write, _f32(ssd.flash_program_us), 0.0)
     cost = cost + torch.where(miss, _f32(ssd.flash_read_us), 0.0)
@@ -142,23 +146,24 @@ def flash_stage(
             [
                 arrival,
                 cost,
-                fstate.chip_busy[safe_key.long()],
+                take(fstate.chip_busy, safe_key),
                 (rank_in_key == 0).to(F32),
             ],
             dim=-1,
         )
         s = unsort(page, position)
         busy_sorted = queueing_scan(
-            s[:, 0], s[:, 1], s[:, 3] > 0.0, s[:, 2], use_pallas=use_pallas,
+            s[..., 0], s[..., 1], s[..., 3] > 0.0, s[..., 2],
+            use_pallas=use_pallas,
         )
-        busy = busy_sorted[position.long()]
+        busy = take(busy_sorted, position)
     else:
         order, heads, _ = sort_by_segment(key)
         o = order.long()
-        safe = torch.clamp(key[o], 0, k - 1)
+        safe = torch.clamp(take(key, o), 0, k - 1)
         busy_sorted = queueing_scan(
-            arrival[o], cost[o], heads, fstate.chip_busy[safe.long()],
-            use_pallas=use_pallas,
+            take(arrival, o), take(cost, o), heads,
+            take(fstate.chip_busy, safe), use_pallas=use_pallas,
         )
         busy = unsort(busy_sorted, order)
     if not use_pallas_flash:
@@ -168,7 +173,7 @@ def flash_stage(
         )
 
     # Non-event rows see the die work scheduled in previous epochs.
-    epoch_view = torch.maximum(arrival, fstate.chip_busy[chip.long()])
+    epoch_view = torch.maximum(arrival, take(fstate.chip_busy, chip))
     flash_done = torch.where(
         is_write,
         busy,
@@ -179,7 +184,7 @@ def flash_stage(
     # -- page-pool accounting + greedy GC (once per epoch) ----------------
     cap = _f32(ssd.num_blocks)
     phys = _f32(ssd.phys_pages)
-    n_w = torch.sum(is_write.to(F32), dtype=F32)
+    n_w = torch.sum(is_write.to(F32), dim=-1, dtype=F32)
     valid_pages = torch.clamp(
         fstate.valid_pages
         + n_w * (1.0 - true_div(fstate.valid_pages, cap)),
@@ -203,10 +208,11 @@ def flash_stage(
         n_gc = torch.minimum(torch.clamp(n_gc, min=0.0),
                              torch.floor(invalid / net))
         free_pages = free_pages + n_gc * net
-        t_now = torch.amax(torch.where(valid, arrival, 0.0))
+        t_now = torch.amax(torch.where(valid, arrival, 0.0), dim=-1)
         chip_busy = torch.where(
-            n_gc > 0.0,
-            torch.maximum(chip_busy, t_now) + true_div(n_gc * per_gc_us, k),
+            n_gc[..., None] > 0.0,
+            torch.maximum(chip_busy, t_now[..., None])
+            + true_div(n_gc * per_gc_us, k)[..., None],
             chip_busy,
         )
         gc_count = gc_count + n_gc
@@ -215,9 +221,10 @@ def flash_stage(
         chip_busy=chip_busy,
         free_pages=free_pages,
         valid_pages=valid_pages,
-        io_seq=fstate.io_seq + torch.sum(valid.to(I32), dtype=I32),
+        io_seq=fstate.io_seq + torch.sum(valid.to(I32), dim=-1, dtype=I32),
         prog_seq=torch.remainder(
-            fstate.prog_seq + torch.sum(is_write.to(I32), dtype=I32), k
+            fstate.prog_seq + torch.sum(is_write.to(I32), dim=-1, dtype=I32),
+            k,
         ),
         gc_count=gc_count,
     )

@@ -8,6 +8,10 @@ fetches all units' SQs in parallel; the *centralized* NVMeVirt baseline
 has one dispatcher that serializes over all SQs, one entry a transaction.
 ``submit`` and ``deal_sqs`` post a flat application batch
 (``core/client.py``).
+
+Every function takes one drive's rings or an M-drive array's, whose
+leaves carry a leading ``(M,)`` axis (the clock ``(M,)``, the cursors
+``(M, U)``); each drive's numbers are those of a call on its own.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.core.segops import (
     segment_rank,
     segment_sum,
     seq_cumsum,
+    take,
     true_div,
 )
 from repro_torch.core.types import (
@@ -49,25 +54,28 @@ class SQRings:
 
     @property
     def num_sqs(self) -> int:
-        return self.submit_time.shape[0]
+        return self.submit_time.shape[-2]
 
     @property
     def depth(self) -> int:
-        return self.submit_time.shape[1]
+        return self.submit_time.shape[-1]
 
     @staticmethod
-    def empty(num_sqs: int, depth: int, device) -> "SQRings":
+    def empty(num_sqs: int, depth: int, device,
+              lead: Tuple[int, ...] = ()) -> "SQRings":
+        """Empty rings; ``lead=(M,)`` gives an array's, one set a drive."""
+        shape = tuple(lead) + (num_sqs, depth)
+
         def z():
-            return torch.zeros((num_sqs, depth), dtype=I32, device=device)
+            return torch.zeros(shape, dtype=I32, device=device)
 
         return SQRings(
-            submit_time=torch.full((num_sqs, depth), 3e38, dtype=F32,
-                                   device=device),
+            submit_time=torch.full(shape, 3e38, dtype=F32, device=device),
             opcode=z(), lba=z(),
-            nblocks=torch.ones((num_sqs, depth), dtype=I32, device=device),
+            nblocks=torch.ones(shape, dtype=I32, device=device),
             buf_id=z(), req_id=z(), tenant=z(),
-            head=torch.zeros((num_sqs,), dtype=I32, device=device),
-            tail=torch.zeros((num_sqs,), dtype=I32, device=device),
+            head=torch.zeros(shape[:-1], dtype=I32, device=device),
+            tail=torch.zeros(shape[:-1], dtype=I32, device=device),
         )
 
 
@@ -79,15 +87,19 @@ def scatter_drop(
     field: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
     val: torch.Tensor,
 ) -> torch.Tensor:
-    """``field.at[rows, pos].set(val, mode="drop")`` on a (Q, D, ...) ring
-    field: entries whose ``pos`` is outside ``[0, D)`` are dropped, and of
-    several entries for one slot the last one wins."""
-    q, d = field.shape[0], field.shape[1]
-    rest = tuple(field.shape[2:])
+    """``field.at[rows, pos].set(val, mode="drop")`` on a (..., Q, D, ...)
+    ring field, drive by drive: entries whose ``pos`` is outside
+    ``[0, D)`` are dropped, and of several entries for one slot the last
+    one wins. ``val`` is ``pos``'s shape plus the field's trailing axes."""
+    rest = tuple(val.shape[pos.dim():])
+    nlead = field.dim() - 2 - len(rest)
+    lead = tuple(field.shape[:nlead])
+    q, d = field.shape[nlead], field.shape[nlead + 1]
     keep = (pos >= 0) & (pos < d)
     flat = torch.where(keep, rows.long() * d + pos.long(), q * d)
-    out = scatter_last(field.reshape((q * d,) + rest), flat.reshape(-1),
-                       val.reshape((-1,) + rest))
+    out = scatter_last(field.reshape(lead + (q * d,) + rest),
+                       flat.expand(pos.shape).reshape(lead + (-1,)),
+                       val.reshape(lead + (-1,) + rest))
     return out.reshape(field.shape)
 
 
@@ -111,27 +123,28 @@ def submit(
     sq_key = torch.where(valid, sq_id, q)
     offset = segment_rank(sq_key)
     row = torch.clamp(sq_key, 0, q - 1)
-    pos = torch.remainder(rings.tail[row.long()] + offset, rings.depth)
+    pos = torch.remainder(take(rings.tail, row) + offset, rings.depth)
     # Invalid rows scatter out of bounds and are dropped.
     pos = torch.where(valid, pos, rings.depth)
     new = (submit_time, opcode, lba, nblocks, buf_id, req_id, tenant)
     fields = {
-        name: scatter_drop(getattr(rings, name), row, pos, val)
+        name: scatter_drop(getattr(rings, name), row, pos,
+                           val.expand(pos.shape))
         for name, val in zip(_RING_FIELDS, new)
     }
-    counts = segment_sum(valid.to(I32), sq_key, q + 1)[:q]
+    counts = segment_sum(valid.to(I32), sq_key, q + 1)[..., :q]
     return dataclasses.replace(rings, **fields, tail=rings.tail + counts)
 
 
 def submit_grouped(
     rings: SQRings,
-    submit_time: torch.Tensor,  # (Q, F) — row q targets SQ q
+    submit_time: torch.Tensor,  # (..., Q, F) — row q targets SQ q
     opcode: torch.Tensor,
     lba: torch.Tensor,
     nblocks: torch.Tensor,
     buf_id: torch.Tensor,
     req_id: torch.Tensor,
-    valid: torch.Tensor,        # (Q, F) bool
+    valid: torch.Tensor,        # (..., Q, F) bool
     tenant: "torch.Tensor | None" = None,
     fused: bool = False,
 ) -> SQRings:
@@ -142,16 +155,17 @@ def submit_grouped(
     six i32 fields riding as raw float32 bits (``Tensor.view``) — bits are
     moved, never converted, so the rings land bit-identical.
     """
-    q, f = submit_time.shape
+    q, f = submit_time.shape[-2:]
     dev = submit_time.device
     if tenant is None:
         tenant = torch.zeros_like(opcode)
-    offset = torch.cumsum(valid.to(I32), 1, dtype=I32) - 1
-    pos = torch.remainder(rings.tail[:, None] + offset, rings.depth)
+    offset = torch.cumsum(valid.to(I32), -1, dtype=I32) - 1
+    pos = torch.remainder(rings.tail[..., None] + offset, rings.depth)
     pos = torch.where(valid, pos, rings.depth)  # dropped
-    rows = torch.arange(q, dtype=I32, device=dev)[:, None].expand(q, f)
-    tail = rings.tail + torch.sum(valid.to(I32), dim=1, dtype=I32)
-    new = (submit_time, opcode, lba, nblocks, buf_id, req_id, tenant)
+    rows = torch.arange(q, dtype=I32, device=dev)[:, None].expand(pos.shape)
+    tail = rings.tail + torch.sum(valid.to(I32), dim=-1, dtype=I32)
+    new = tuple(x.expand(pos.shape) for x in (
+        submit_time, opcode, lba, nblocks, buf_id, req_id, tenant))
 
     if fused:
         page = torch.stack(
@@ -183,25 +197,26 @@ def _gather_entries(
     q, d = rings.num_sqs, rings.depth
     dev = nfetch.device
     j = torch.arange(fetch_width, dtype=I32, device=dev)[None, :]
-    pos = torch.remainder(rings.head[:, None] + j, d)          # (Q, F)
-    valid = j < nfetch[:, None]                                # (Q, F)
+    pos = torch.remainder(rings.head[..., None] + j, d)        # (..., Q, F)
+    valid = j < nfetch[..., None]                              # (..., Q, F)
     rows = torch.arange(q, dtype=I32, device=dev)[:, None]
-    r, p = rows.long(), pos.long()
+    flat = tuple(pos.shape[:-2]) + (-1,)
+    p = pos.long()
 
-    def take(field):
-        return field[r, p].reshape(-1)
+    def gather(field):
+        return take(field, p).reshape(flat)
 
     batch = RequestBatch(
-        arrival=take(rings.submit_time),   # provisional: submit time
-        sq_id=rows.expand(q, fetch_width).reshape(-1),
-        slot=pos.reshape(-1),
-        opcode=take(rings.opcode),
-        lba=take(rings.lba),
-        nblocks=take(rings.nblocks),
-        buf_id=take(rings.buf_id),
-        req_id=take(rings.req_id),
-        valid=valid.reshape(-1),
-        tenant=take(rings.tenant),
+        arrival=gather(rings.submit_time),   # provisional: submit time
+        sq_id=rows.expand(pos.shape).reshape(flat),
+        slot=pos.reshape(flat),
+        opcode=gather(rings.opcode),
+        lba=gather(rings.lba),
+        nblocks=gather(rings.nblocks),
+        buf_id=gather(rings.buf_id),
+        req_id=gather(rings.req_id),
+        valid=valid.reshape(flat),
+        tenant=gather(rings.tenant),
     )
     return batch, valid
 
@@ -224,19 +239,20 @@ def fetch_distributed(
     nfetch = torch.clamp(torch.minimum(avail, visible), max=f)
     # Self-pacing: a dispatcher still busy with its previous pass skips
     # this round; pending entries coalesce into its next fetch.
-    active_u = disp_time <= clock                                   # (U,)
-    active = torch.repeat_interleave(active_u, per_unit)            # (Q,)
+    lead = tuple(disp_time.shape[:-1])
+    active_u = disp_time <= clock[..., None]                        # (U,)
+    active = torch.repeat_interleave(active_u, per_unit, dim=-1)    # (Q,)
     nfetch = torch.where(active, nfetch, 0)
     cost = fetch_cost(nfetch, cfg, plat)
     cost = torch.where(active, cost, 0.0)
 
-    cum = seq_cumsum(cost.reshape(u, per_unit), 1)
-    start = torch.maximum(disp_time, clock)                         # (U,)
-    fetch_done_sq = (start[:, None] + cum).reshape(qs)              # (Q,)
-    disp_time = start + cum[:, -1]
+    cum = seq_cumsum(cost.reshape(lead + (u, per_unit)), -1)
+    start = torch.maximum(disp_time, clock[..., None])              # (U,)
+    fetch_done_sq = (start[..., None] + cum).reshape(lead + (qs,))  # (Q,)
+    disp_time = start + cum[..., -1]
 
     batch, _ = _gather_entries(rings, nfetch, f)
-    fetch_done = torch.repeat_interleave(fetch_done_sq, f)
+    fetch_done = torch.repeat_interleave(fetch_done_sq, f, dim=-1)
     rings = dataclasses.replace(rings, head=rings.head + nfetch)
     return rings, disp_time, batch, fetch_done
 
@@ -258,19 +274,21 @@ def fetch_centralized(
     avail = rings.tail - rings.head
     visible = _visible_count(rings, clock, f)
     nfetch = torch.clamp(torch.minimum(avail, visible), max=f)
-    nfetch = torch.where(disp_time[0] <= clock, nfetch, 0)  # self-pacing
+    # self-pacing
+    nfetch = torch.where(disp_time[..., :1] <= clock[..., None], nfetch, 0)
 
     per_entry = _per_entry_cost(cfg, plat)
     cost = nfetch.to(F32) * per_entry + plat.doorbell_poll_us
-    cum = seq_cumsum(cost, 0)
-    start = torch.maximum(disp_time[0], clock)
+    cum = seq_cumsum(cost, -1)
+    start = torch.maximum(disp_time[..., :1], clock[..., None])
     sq_base = start + cum - cost                                    # (Q,)
-    disp_time = (start + cum[-1])[None]
+    disp_time = start + cum[..., -1:]
 
     batch, _ = _gather_entries(rings, nfetch, f)
     # Entry j of SQ q completes fetching at base_q + (j+1)*per_entry.
     j1 = torch.arange(1, f + 1, dtype=F32, device=nfetch.device)[None, :]
-    fetch_done = (sq_base[:, None] + j1 * per_entry).reshape(-1)
+    fetch_done = (sq_base[..., None] + j1 * per_entry).reshape(
+        tuple(sq_base.shape[:-1]) + (-1,))
     rings = dataclasses.replace(rings, head=rings.head + nfetch)
     return rings, disp_time, batch, fetch_done
 
@@ -353,10 +371,9 @@ def _visible_count(
     d = rings.depth
     dev = rings.head.device
     j = torch.arange(f, dtype=I32, device=dev)[None, :]
-    pos = torch.remainder(rings.head[:, None] + j, d)
-    rows = torch.arange(rings.num_sqs, dtype=torch.int64, device=dev)[:, None]
-    t = rings.submit_time[rows, pos.long()]
-    in_ring = j < (rings.tail - rings.head)[:, None]
-    vis = (t <= clock) & in_ring
-    lead = torch.cumprod(vis.to(I32), dim=1, dtype=I32)
-    return torch.sum(lead, dim=1, dtype=I32)
+    pos = torch.remainder(rings.head[..., None] + j, d)
+    t = take(rings.submit_time, pos)
+    in_ring = j < (rings.tail - rings.head)[..., None]
+    vis = (t <= clock[..., None, None]) & in_ring
+    lead = torch.cumprod(vis.to(I32), dim=-1, dtype=I32)
+    return torch.sum(lead, dim=-1, dtype=I32)

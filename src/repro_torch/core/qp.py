@@ -7,6 +7,7 @@ neutral completion path (no coalescing, zero posting and poll cost),
 which stores the entries but adds no virtual time; a non-neutral
 ``QPConfig`` is rejected when ``DevicePipeline`` is built (ROADMAP A8).
 With ``use_pallas_reap`` the posting runs as the ``fused_reap`` kernel.
+An array's rings carry a leading ``(M,)`` drive axis, (M, Q, D).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.frontend import scatter_drop
-from repro_torch.core.segops import segment_rank
+from repro_torch.core.segops import segment_rank, segment_sum, take
 from repro_torch.core.types import F32, I32, QPConfig
 
 
@@ -35,24 +36,28 @@ class CQRings:
 
     @property
     def num_cqs(self) -> int:
-        return self.done_time.shape[0]
+        return self.done_time.shape[-2]
 
     @property
     def depth(self) -> int:
-        return self.done_time.shape[1]
+        return self.done_time.shape[-1]
 
     @staticmethod
-    def empty(num_cqs: int, depth: int, device) -> "CQRings":
+    def empty(num_cqs: int, depth: int, device,
+              lead: Tuple[int, ...] = ()) -> "CQRings":
+        """Empty rings; ``lead=(M,)`` gives an array's, one set a drive."""
+        shape = tuple(lead) + (num_cqs, depth)
+
         def full(v):
-            return torch.full((num_cqs, depth), v, dtype=F32, device=device)
+            return torch.full(shape, v, dtype=F32, device=device)
 
         return CQRings(
             done_time=full(3e38),
             visible_time=full(3e38),
-            req_id=torch.zeros((num_cqs, depth), dtype=I32, device=device),
-            head=torch.zeros((num_cqs,), dtype=I32, device=device),
-            tail=torch.zeros((num_cqs,), dtype=I32, device=device),
-            bell_time=torch.zeros((num_cqs,), dtype=F32, device=device),
+            req_id=torch.zeros(shape, dtype=I32, device=device),
+            head=torch.zeros(shape[:-1], dtype=I32, device=device),
+            tail=torch.zeros(shape[:-1], dtype=I32, device=device),
+            bell_time=torch.zeros(shape[:-1], dtype=F32, device=device),
         )
 
 
@@ -75,11 +80,10 @@ def _scatter_entries(
     """
     q, d = cq.num_cqs, cq.depth
     row = torch.clamp(key, 0, q - 1)
-    pos = torch.remainder(cq.tail[row.long()] + rank, d)
+    pos = torch.remainder(take(cq.tail, row) + rank, d)
     pos = torch.where(valid, pos, d)  # invalid rows drop out of bounds
     if counts is None:
-        counts = torch.zeros((q + 1,), dtype=I32, device=key.device)
-        counts = counts.index_add_(0, key.long(), valid.to(I32))[:q]
+        counts = segment_sum(valid.to(I32), key, q + 1)[..., :q]
     if fused:
         page = torch.stack([done, visible, req_id.view(F32)], dim=-1)
         rings = torch.stack(

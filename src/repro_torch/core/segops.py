@@ -12,10 +12,18 @@ result depends on the order of a reduction, the port keeps that order:
 ``associative_scan`` is JAX's odd/even recursion written out, so
 ``queueing_scan``'s reference path combines the same pairs in the same
 tree as ``lax.associative_scan``.
+
+Every op works along the last axis (the rows of one drive's epoch) and
+treats any leading axes as independent drives of an array: a leading
+``(M,)`` axis gives each drive exactly the numbers a call on its own rows
+gives, which is how the engine runs an M-drive array in one program (the
+reference's ``vmap``). Scatters and segment reductions flatten the drives
+with a per-drive offset; gathers go through ``take`` and ``take_rows``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, List, Sequence, Tuple
 
 import torch
@@ -43,6 +51,42 @@ def hash_u32(x: torch.Tensor) -> torch.Tensor:
 def uniform01(h: torch.Tensor) -> torch.Tensor:
     """Map a u32 hash (int64 carrier) to (0, 1) — open at both ends."""
     return (h.to(F32) + 0.5) / 4294967296.0
+
+
+def _same_ndim(x: torch.Tensor, idx: torch.Tensor, trailing: int):
+    """``x`` and ``idx`` with ones prepended to the one with fewer leading
+    axes (``x`` has ``trailing`` more axes than ``idx`` past the leading
+    ones), so that ``take_along_dim`` broadcasts them."""
+    lead = idx.dim() - (x.dim() - trailing)
+    if lead > 0:
+        x = x.reshape((1,) * lead + tuple(x.shape))
+    elif lead < 0:
+        idx = idx.reshape((1,) * -lead + tuple(idx.shape))
+    return x, idx.long()
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` drive by drive: each drive's row of ``idx`` indexes
+    that drive's row of ``x`` (a missing leading axis on either
+    broadcasts). An index used more than once is best made int64 once by
+    the caller (``take_along_dim`` wants int64)."""
+    x, idx = _same_ndim(x, idx, 0)
+    return torch.take_along_dim(x, idx, dim=-1)
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` drive by drive for a (..., R, W) table of rows and
+    (..., N) row indices: (..., N, W)."""
+    table, idx = _same_ndim(table, idx, 1)
+    return torch.take_along_dim(table, idx[..., None], dim=-2)
+
+
+def drive_offsets(lead: Tuple[int, ...], size: int, device) -> torch.Tensor:
+    """``d * size`` for each drive d of leading shape ``lead``, shaped
+    ``lead + (1,)`` (int64): the offset of drive d's block when the
+    drives' tables are laid end to end."""
+    return (torch.arange(math.prod(lead), dtype=torch.int64, device=device)
+            * size).reshape(tuple(lead) + (1,))
 
 
 def stable_argsort(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -94,20 +138,21 @@ def seq_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``lax``'s interleave: it pads both halves with zeros and adds them,
-    so a float element comes out as ``x + 0.0`` (-0 becomes +0, every
-    other value keeps its bits). The port writes that sum straight into
-    each half's slots, one kernel a half as a copy would be."""
+    """``lax``'s interleave along the last axis: it pads both halves with
+    zeros and adds them, so a float element comes out as ``x + 0.0`` (-0
+    becomes +0, every other value keeps its bits). The port writes that
+    sum straight into each half's slots, one kernel a half as a copy
+    would be."""
     out = torch.empty(
-        (a.shape[0] + b.shape[0],) + tuple(a.shape[1:]),
+        tuple(a.shape[:-1]) + (a.shape[-1] + b.shape[-1],),
         dtype=a.dtype, device=a.device,
     )
     if out.dtype.is_floating_point:
-        torch.add(a, 0.0, out=out[0::2])
-        torch.add(b, 0.0, out=out[1::2])
+        torch.add(a, 0.0, out=out[..., 0::2])
+        torch.add(b, 0.0, out=out[..., 1::2])
     else:
-        out[0::2] = a
-        out[1::2] = b
+        out[..., 0::2] = a
+        out[..., 1::2] = b
     return out
 
 
@@ -115,7 +160,8 @@ def associative_scan(
     fn: Callable[[List[torch.Tensor], List[torch.Tensor]], List[torch.Tensor]],
     elems: Sequence[torch.Tensor],
 ) -> List[torch.Tensor]:
-    """Inclusive scan along dim 0 with JAX's ``lax.associative_scan`` tree.
+    """Inclusive scan along the last axis with JAX's
+    ``lax.associative_scan`` tree (the elements share one shape).
 
     Combine adjacent pairs, scan the half-size result recursively (the
     odd outputs), then combine each odd output with the next even input
@@ -124,19 +170,19 @@ def associative_scan(
     """
 
     def _scan(es: List[torch.Tensor]) -> List[torch.Tensor]:
-        n = es[0].shape[0]
+        n = es[0].shape[-1]
         if n < 2:
             return es
-        reduced = fn([e[0:-1:2] for e in es], [e[1::2] for e in es])
+        reduced = fn([e[..., 0:-1:2] for e in es], [e[..., 1::2] for e in es])
         odd = _scan(reduced)
         if n % 2 == 0:
-            even = fn([e[:-1] for e in odd], [e[2::2] for e in es])
+            even = fn([e[..., :-1] for e in odd], [e[..., 2::2] for e in es])
         else:
-            even = fn(odd, [e[2::2] for e in es])
-        even = [torch.cat([e[:1], r]) for e, r in zip(es, even)]
+            even = fn(odd, [e[..., 2::2] for e in es])
+        even = [torch.cat([e[..., :1], r], dim=-1) for e, r in zip(es, even)]
         return [_interleave(a, b) for a, b in zip(even, odd)]
 
-    return _scan(list(elems))
+    return _scan(list(torch.broadcast_tensors(*elems)))
 
 
 def jax_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -201,9 +247,11 @@ class SortPlan:
     rank: torch.Tensor   # (N,) i32 within-segment position in sorted layout
 
 
-def _heads(s_key: torch.Tensor) -> torch.Tensor:
-    first = torch.ones((1,), dtype=torch.bool, device=s_key.device)
-    return torch.cat([first, s_key[1:] != s_key[:-1]])
+def segment_heads(s_key: torch.Tensor) -> torch.Tensor:
+    """Where each run of equal keys starts, along the last axis."""
+    first = torch.ones(tuple(s_key.shape[:-1]) + (1,), dtype=torch.bool,
+                       device=s_key.device)
+    return torch.cat([first, s_key[..., 1:] != s_key[..., :-1]], dim=-1)
 
 
 def _heads_rank(s_key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -213,26 +261,27 @@ def _heads_rank(s_key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     increase, so the newest head always wins): the integer result the
     reference derives with a float segmented prefix max.
     """
-    n = s_key.shape[0]
+    n = s_key.shape[-1]
     idx = torch.arange(n, dtype=I32, device=s_key.device)
-    heads = _heads(s_key)
-    seg_start = torch.cummax(torch.where(heads, idx, 0), dim=0).values
+    heads = segment_heads(s_key)
+    seg_start = torch.cummax(torch.where(heads, idx, 0), dim=-1).values
     return heads, idx - seg_start
 
 
 def make_sort_plan(key: torch.Tensor) -> SortPlan:
     """Stable sort by integer segment key, packaged as a reusable plan."""
     order = stable_argsort(key)
-    heads, rank = _heads_rank(key[order])
+    heads, rank = _heads_rank(take(key, order))
     return SortPlan(order=order, heads=heads, rank=rank)
 
 
 def presorted_plan(key: torch.Tensor) -> SortPlan:
     """SortPlan for a key the caller knows is already non-decreasing."""
-    n = key.shape[0]
+    n = key.shape[-1]
     heads, rank = _heads_rank(key)
     return SortPlan(
-        order=torch.arange(n, dtype=I32, device=key.device),
+        order=torch.arange(n, dtype=I32, device=key.device).expand(
+            key.shape),
         heads=heads, rank=rank,
     )
 
@@ -246,46 +295,68 @@ def sort_by_segment(
 
 
 def unsort(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """``zeros.at[order].set(values)`` for a permutation ``order``."""
-    out = torch.empty_like(values)
-    out[order.long()] = values
-    return out
+    """``zeros.at[order].set(values)`` for a permutation ``order`` of each
+    drive's rows: ``order`` is (..., N) and ``values`` (..., N, ...) with
+    the same leading axes."""
+    rest = tuple(values.shape[order.dim():])
+    idx = order.long().reshape(tuple(order.shape) + (1,) * len(rest))
+    return torch.empty_like(values).scatter_(
+        order.dim() - 1, idx.expand(values.shape), values)
 
 
 def segment_sum(vals: torch.Tensor, seg: torch.Tensor, k: int) -> torch.Tensor:
-    """``jax.ops.segment_sum`` for keys in ``[0, k)``. On the card the
-    additions run in no fixed order, so callers sum counts or other
-    integer-valued floats, which are exact in any order."""
-    out = torch.zeros((k,), dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, seg.long(), vals)
+    """``jax.ops.segment_sum`` for keys in ``[0, k)``, per drive: (..., k).
+    On the card the additions run in no fixed order, so callers sum counts
+    or other integer-valued floats, which are exact in any order."""
+    vals, seg = torch.broadcast_tensors(vals, seg)
+    out = torch.zeros(tuple(vals.shape[:-1]) + (k,), dtype=vals.dtype,
+                      device=vals.device)
+    return out.scatter_add_(-1, seg.long(), vals)
 
 
 def segment_max(vals: torch.Tensor, seg: torch.Tensor, k: int) -> torch.Tensor:
-    """``jax.ops.segment_max``: an empty segment reduces to -inf."""
-    out = torch.full((k,), float("-inf"), dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce_(0, seg.long(), vals, "amax", include_self=True)
+    """``jax.ops.segment_max`` per drive: an empty segment reduces to
+    -inf."""
+    vals, seg = torch.broadcast_tensors(vals, seg)
+    out = torch.full(tuple(vals.shape[:-1]) + (k,), float("-inf"),
+                     dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(-1, seg.long(), vals, "amax",
+                               include_self=True)
 
 
 def scatter_last(
     table: torch.Tensor, dst: torch.Tensor, rows: torch.Tensor
 ) -> torch.Tensor:
-    """``table.at[dst].set(rows, mode="drop")`` with the last row winning.
+    """``table.at[dst].set(rows, mode="drop")`` with the last row winning,
+    per drive: ``dst`` is (..., N), ``table`` (..., R, ...) and ``rows``
+    (..., N, ...) with the same leading axes.
 
     Destinations outside ``[0, R)`` are dropped. For every destination the
     winner is the highest row index that targets it (an ``amax`` over the
     row indices); only winners are scattered, so no two writes collide.
+    The drives' tables are laid end to end (``drive_offsets``), so one
+    scatter serves them all.
     """
-    r = table.shape[0]
-    n = dst.shape[0]
+    lead = tuple(dst.shape[:-1])
+    r = table.shape[len(lead)]
+    rest = tuple(table.shape[len(lead) + 1:])
+    total = math.prod(lead) * r
     keep = (dst >= 0) & (dst < r)
-    d = torch.where(keep, dst, r).long()
+    if lead:
+        d = torch.where(keep, dst.long() + drive_offsets(lead, r, dst.device),
+                        total).reshape(-1)
+        keep = keep.reshape(-1)
+    else:
+        d = torch.where(keep, dst, r).long()
+    n = d.shape[0]
     idx = torch.arange(n, dtype=torch.int64, device=dst.device)
-    last = torch.full((r + 1,), -1, dtype=torch.int64, device=dst.device)
+    last = torch.full((total + 1,), -1, dtype=torch.int64, device=dst.device)
     last.scatter_reduce_(0, d, idx, "amax", include_self=True)
     win = keep & (last[d] == idx)
-    out = torch.cat([table, table.new_zeros((1,) + tuple(table.shape[1:]))])
-    out[torch.where(win, d, r)] = rows
-    return out[:r]
+    out = torch.cat([table.reshape((total,) + rest),
+                     table.new_zeros((1,) + rest)])
+    out[torch.where(win, d, total)] = rows.reshape((n,) + rest)
+    return out[:total].reshape(table.shape)
 
 
 def segment_rank(key: torch.Tensor) -> torch.Tensor:
@@ -300,10 +371,11 @@ def masked_presorted_rank(
 ) -> torch.Tensor:
     """``segment_rank(where(valid, group, G))`` for valid rows, sort-free;
     invalid rows return 0."""
+    group, valid = torch.broadcast_tensors(group, valid)
     vi = valid.to(I32)
-    exc = torch.cumsum(vi, 0, dtype=I32) - vi
-    heads = _heads(group)
-    base = torch.cummax(torch.where(heads, exc, 0), dim=0).values
+    exc = torch.cumsum(vi, -1, dtype=I32) - vi
+    heads = segment_heads(group)
+    base = torch.cummax(torch.where(heads, exc, 0), dim=-1).values
     return torch.where(valid, exc - base, 0)
 
 
@@ -312,16 +384,16 @@ class CompactPlan:
     """Dense-prefix layout of one epoch's valid rows: valid rows land at
     ``0 .. n_valid-1`` in original order, invalid rows pack after."""
 
-    pos: torch.Tensor      # (N,) i32 permutation into the dense layout
-    n_valid: torch.Tensor  # () i32 number of valid rows
+    pos: torch.Tensor      # (..., N) i32 permutation into the dense layout
+    n_valid: torch.Tensor  # (...) i32 number of valid rows
 
 
 def compact_epoch(valid: torch.Tensor) -> CompactPlan:
     """Build the dense-prefix compaction plan for one epoch's validity."""
-    cs = torch.cumsum(valid.to(I32), 0, dtype=I32)
-    n_valid = cs[-1]
-    idx = torch.arange(valid.shape[0], dtype=I32, device=valid.device)
-    pos = torch.where(valid, cs - 1, n_valid + (idx - cs))
+    cs = torch.cumsum(valid.to(I32), -1, dtype=I32)
+    n_valid = cs[..., -1]
+    idx = torch.arange(valid.shape[-1], dtype=I32, device=valid.device)
+    pos = torch.where(valid, cs - 1, n_valid[..., None] + (idx - cs))
     return CompactPlan(pos=pos, n_valid=n_valid)
 
 
@@ -331,43 +403,44 @@ def counting_positions(
     """Stable counting-sort positions for keys in ``[0, num_keys)``.
 
     Returns ``(position, rank_in_key, counts, offsets)`` — the stable-sort
-    permutation as destinations, from one (num_keys, N) one-hot cumsum.
+    permutation as destinations, from one (..., num_keys, N) one-hot
+    cumsum.
     """
-    n = key.shape[0]
-    idx = torch.arange(n, dtype=I32, device=key.device)
     keys = torch.arange(num_keys, dtype=key.dtype, device=key.device)
-    oh = key[None, :] == keys[:, None]
-    csum = torch.cumsum(oh.to(I32), 1, dtype=I32)  # (S, N)
-    counts = csum[:, -1]
-    offsets = torch.cumsum(counts, 0, dtype=I32) - counts
+    oh = key[..., None, :] == keys[:, None]
+    csum = torch.cumsum(oh.to(I32), -1, dtype=I32)  # (..., S, N)
+    counts = csum[..., -1]
+    offsets = torch.cumsum(counts, -1, dtype=I32) - counts
     k = key.long()
-    rank_in_key = csum[k, idx.long()] - 1
-    return offsets[k] + rank_in_key, rank_in_key, counts, offsets
+    rank_in_key = torch.take_along_dim(csum, k[..., None, :],
+                                       dim=-2)[..., 0, :] - 1
+    return take(offsets, k) + rank_in_key, rank_in_key, counts, offsets
 
 
 def counting_sort_plan(key: torch.Tensor, num_keys: int) -> SortPlan:
     """``make_sort_plan`` via counting sort (bit-identical for keys in
     ``[0, num_keys)``: stable counting sort IS the stable sort)."""
-    n = key.shape[0]
+    n = key.shape[-1]
     position, rank_in_key, _, _ = counting_positions(key, num_keys)
-    idx = torch.arange(n, dtype=I32, device=key.device)
+    idx = torch.arange(n, dtype=I32, device=key.device).expand(key.shape)
     page = torch.stack(
         [idx, rank_in_key, (rank_in_key == 0).to(I32)], dim=-1
     )
     s = unsort(page, position)
-    return SortPlan(order=s[:, 0], rank=s[:, 1], heads=s[:, 2].bool())
+    return SortPlan(order=s[..., 0], rank=s[..., 1], heads=s[..., 2].bool())
 
 
 def block_masked_rank(valid: torch.Tensor, block: int) -> torch.Tensor:
     """``masked_presorted_rank`` for fixed-width segment blocks."""
-    v = valid.reshape(-1, block).to(I32)
-    rank = (torch.cumsum(v, 1, dtype=I32) - v).reshape(-1)
+    v = valid.reshape(tuple(valid.shape[:-1]) + (-1, block)).to(I32)
+    rank = (torch.cumsum(v, -1, dtype=I32) - v).reshape(valid.shape)
     return torch.where(valid, rank, 0)
 
 
 def block_counts(valid: torch.Tensor, block: int) -> torch.Tensor:
     """Per-segment valid counts for fixed-width segment blocks."""
-    return torch.sum(valid.reshape(-1, block).to(I32), dim=1, dtype=I32)
+    v = valid.reshape(tuple(valid.shape[:-1]) + (-1, block)).to(I32)
+    return torch.sum(v, dim=-1, dtype=I32)
 
 
 def _seeded(ready, cost, heads, seed):
@@ -382,7 +455,7 @@ def _seeded(ready, cost, heads, seed):
     scan seeds with ``jax_max``; otherwise one ``torch.maximum`` adds no
     device event."""
     a = ready + cost
-    mx = jax_max if a.shape[0] < 2 else torch.maximum
+    mx = jax_max if a.shape[-1] < 2 else torch.maximum
     return torch.where(heads, mx(a, seed + cost), a)
 
 
@@ -402,14 +475,15 @@ def queueing_scan_via_segmax(
     is a tree) gives the CPU's numbers (whose float32 cumsum accumulates
     in double)."""
     a = _seeded(ready, cost, heads, seed)
-    s = torch.cumsum(cost.to(torch.float64), 0).to(F32)
+    s = torch.cumsum(cost.to(torch.float64), -1).to(F32)
     return s + segmax_fn(a - s, heads)
 
 
 def _kernel_segmax(values: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
     from repro_torch.kernels import ops as kops
 
-    return kops.seg_scan(values.to(F32).contiguous(), heads.contiguous())
+    values, heads = torch.broadcast_tensors(values.to(F32), heads)
+    return kops.seg_scan(values.contiguous(), heads.contiguous())
 
 
 def queueing_scan(

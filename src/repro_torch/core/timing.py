@@ -21,7 +21,8 @@ through the closed form
 
 where j is the within-instance rank inside the batch. Eager PyTorch
 rounds every multiply and add on its own (no FMA contraction), on the CPU
-and on the card alike.
+and on the card alike. Every update takes one drive's state and batch or
+an array's, with a leading ``(M,)`` axis on every tensor.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from repro_torch.core.segops import (
     segment_sum,
     segmented_prefix_max,
     sort_by_segment,
+    take,
     unsort,
 )
 from repro_torch.core.types import (
@@ -63,9 +65,9 @@ def assign_rr(
     """Round-robin instance assignment in dispatch order. Invalid rows get
     an arbitrary instance and do not advance the cursor. Returns
     (inst, rr')."""
-    pos = torch.cumsum(valid.to(I32), 0, dtype=I32) - 1
-    inst = torch.remainder(rr + torch.clamp(pos, min=0), k)
-    n_valid = torch.sum(valid.to(I32), dtype=I32)
+    pos = torch.cumsum(valid.to(I32), -1, dtype=I32) - 1
+    inst = torch.remainder(rr[..., None] + torch.clamp(pos, min=0), k)
+    n_valid = torch.sum(valid.to(I32), dim=-1, dtype=I32)
     return inst.to(I32), torch.remainder(rr + n_valid, k).to(I32)
 
 
@@ -129,7 +131,7 @@ def _sorted_batch_core(
     lmin = f32(ssd.l_min_us)
 
     safe_inst = torch.clamp(s_inst, 0, k - 1)
-    seed = busy_init[safe_inst.long()]
+    seed = take(busy_init, safe_inst)
     rank_f = rank.to(F32)
     a = s_arr - rank_f * sched
     a = torch.where(head, torch.maximum(a, seed), a)
@@ -161,7 +163,8 @@ def aggregated_batch_times(
     order, head, rank = sort_by_segment(key)
     o = order.long()
     return _sorted_batch_core(
-        busy_init, arrival[o], key[o], valid[o], head, rank, order, ssd,
+        busy_init, take(arrival, o), take(key, o), take(valid, o), head,
+        rank, order, ssd,
     )
 
 
@@ -177,31 +180,34 @@ def compact_rr_batch_times(
     arithmetic runs through the same ``_sorted_batch_core``. Returns
     ``(completion, new_busy, rr')``."""
     k = ssd.n_instances
-    n = arrival.shape[0]
+    n = arrival.shape[-1]
     dev = arrival.device
     plan = compact_epoch(valid)
     pos, n_valid = plan.pos, plan.n_valid
-    idx = torch.arange(n, dtype=I32, device=dev)
+    idx = torch.arange(n, dtype=I32, device=dev).expand(valid.shape)
+    rr_, n_valid_ = rr[..., None], n_valid[..., None]
 
-    q_of_c = torch.remainder(torch.arange(k, dtype=I32, device=dev) - rr, k)
+    q_of_c = torch.remainder(
+        torch.arange(k, dtype=I32, device=dev) - rr_, k)
     m_c = torch.clamp(
-        -torch.div(-(n_valid - q_of_c), k, rounding_mode="floor"), min=0
+        -torch.div(-(n_valid_ - q_of_c), k, rounding_mode="floor"), min=0
     )
-    offsets = torch.cumsum(m_c, 0, dtype=I32) - m_c
+    offsets = torch.cumsum(m_c, -1, dtype=I32) - m_c
 
-    inst_row = torch.remainder(rr + pos, k)
+    inst_row = torch.remainder(rr_ + pos, k)
     pk = torch.div(pos, k, rounding_mode="floor")
-    spos = torch.where(valid, offsets[inst_row.long()] + pk, pos)
-    rank_row = torch.where(valid, pk, pos - n_valid)
+    spos = torch.where(valid, take(offsets, inst_row) + pk, pos)
+    rank_row = torch.where(valid, pk, pos - n_valid_)
     key_row = torch.where(valid, inst_row, k)
     page = torch.stack([idx, rank_row, key_row], dim=-1).to(I32)
     s = unsort(page, spos)
-    order, rank, s_inst = s[:, 0], s[:, 1], s[:, 2]
+    order, rank, s_inst = s[..., 0], s[..., 1], s[..., 2]
     head = rank == 0
 
+    o = order.long()
     completion, new_busy = _sorted_batch_core(
-        busy_init, arrival[order.long()], s_inst, valid[order.long()], head,
-        rank, order, ssd,
+        busy_init, take(arrival, o), s_inst, take(valid, o), head, rank,
+        order, ssd,
     )
     return completion, new_busy, torch.remainder(rr + n_valid, k).to(I32)
 
@@ -243,9 +249,9 @@ def update(
         d = dispatch_order.long()
         permuted = dataclasses.replace(
             batch,
-            arrival=batch.arrival[d],
-            lba=batch.lba[d],
-            valid=batch.valid[d],
+            arrival=take(batch.arrival, d),
+            lba=take(batch.lba, d),
+            valid=take(batch.valid, d),
         )
         state, comp_p = update(state, permuted, ssd, mode, use_compaction)
         return state, unsort(comp_p, dispatch_order)

@@ -24,6 +24,11 @@ Domain: ``pow_f32`` takes positive normal float32 bases and an exponent of
 at least 1 for which the result is not above float32's range; ``log_f32``
 takes positive finite float32. That is every draw of
 ``segops.uniform01``.
+
+``lane_sum`` and ``lane_mean`` add a float32 axis in the order of XLA's
+compiled CPU reduction, for the few places where a float sum's rounding
+decides an outcome (a vector search's distances, a replica router's
+loads).
 """
 from __future__ import annotations
 
@@ -241,3 +246,37 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     tail = _fma32(x3, yy, e * _LN2_LO)
     out = (xm - x2 * 0.5) + tail
     return out + e * _LN2_HI
+
+
+# XLA's CPU backend rewrites a sum over more than this many elements into
+# windows of this size (each summed in order), then sums the windows.
+XLA_REDUCE_WINDOW = 32
+
+
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Float32 sum over the last axis in the order of the reference's
+    compiled ``jnp.sum``: up to 32 elements left to right from 0; more in
+    windows of 32 (the axis padded with zeros to a whole number of
+    windows, half the padding in front), each summed that way, and then
+    the window sums, recursively."""
+    n = x.shape[-1]
+    if n > XLA_REDUCE_WINDOW:
+        m = -(-n // XLA_REDUCE_WINDOW)
+        pad = m * XLA_REDUCE_WINDOW - n
+        if pad:
+            shape = x.shape[:-1]
+            x = torch.cat([x.new_zeros(shape + (pad // 2,)), x,
+                           x.new_zeros(shape + (pad - pad // 2,))], dim=-1)
+        x = lane_sum(x.reshape(x.shape[:-1] + (m, XLA_REDUCE_WINDOW)))
+        return lane_sum(x)
+    acc = x[..., 0] + 0.0
+    for j in range(1, n):
+        acc = acc + x[..., j]
+    return acc
+
+
+def lane_mean(x: torch.Tensor) -> torch.Tensor:
+    """float32 mean over the last axis as the reference's compiled
+    ``jnp.mean`` takes it: ``lane_sum``, times float32(1/n) (XLA turns the
+    division by a constant into that product)."""
+    return lane_sum(x) * float(np.float32(1.0 / x.shape[-1]))

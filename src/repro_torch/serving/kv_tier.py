@@ -18,7 +18,9 @@ Step latency is ``max(gpu_step_us, storage critical path)``, the critical
 path being the latest completion among the decode tenant's ops. The
 reference scans over tokens and steps; here Python loops take their
 place, and nothing inside a step reads a value back to the host. A tier
-striped over several drives (``num_devices > 1``) waits for ROADMAP A14.
+over several drives (``num_devices > 1``) stripes each step's batch
+round-robin over an emulated array (``StorageClient.submit_striped``,
+the drives' state stacked on a leading axis).
 """
 from __future__ import annotations
 
@@ -100,7 +102,7 @@ def paged_cfg_for(
 class TierState:
     """Live serving-tier state carried across decode steps."""
 
-    client: ClientState      # device virtual-time state
+    client: ClientState      # device or array virtual-time state
     kv: pk.PagedKV           # the real paged KV cache (page tables)
     flash: torch.Tensor      # (flash_blocks, block_values) block store
     clock: torch.Tensor      # () f32 virtual time (us)
@@ -110,6 +112,17 @@ def region_block_values(pcfg: pk.PagedKVConfig, tier: KVTierConfig) -> int:
     """Values per block row: one flash row is one block's payload."""
     itemsize = torch.empty((), dtype=getattr(torch, pcfg.dtype)).element_size()
     return tier.block_bytes // itemsize
+
+
+def _submit(storage, tier, client, flash, ops, data):
+    """One mixed op batch down the client path, striped over the array
+    when the tier spans several drives."""
+    if tier.num_devices > 1:
+        return storage.submit_striped(
+            client, flash, ops, data=data,
+            stripe_width=tier.stripe_width, with_data=True,
+        )
+    return storage.submit(client, flash, ops, data=data, with_data=True)
 
 
 def _page_write_ops(kv, pcfg, tier, mask, layers, region, clock, tenant):
@@ -141,15 +154,12 @@ def init_tier(
 ) -> TierState:
     """Fresh tier on ``device`` (``cuda`` unless named): empty paged KV,
     zeroed block store, clock zero."""
-    if tier.num_devices > 1:
-        raise NotImplementedError(
-            "a KV tier striped over several drives is not ported yet "
-            "(ROADMAP A14)"
-        )
     device = resolve_device(device)
     bv = region_block_values(pcfg, tier)
+    client = (storage.init_array_state(tier.num_devices, device)
+              if tier.num_devices > 1 else storage.init_state(device))
     return TierState(
-        client=storage.init_state(device),
+        client=client,
         kv=pk.init_paged(pcfg, batch, device),
         flash=torch.zeros((flash_blocks, bv), dtype=F32, device=device),
         clock=torch.zeros((), dtype=F32, device=device),
@@ -172,9 +182,8 @@ def prefill_flush(
         state.kv, pcfg, tier, cold, layers, region, state.clock,
         tier.prefill_tenant,
     )
-    client, flash, _, done = storage.submit(
-        state.client, state.flash, ops, data=data, with_data=True
-    )
+    client, flash, _, done = _submit(storage, tier, state.client,
+                                     state.flash, ops, data)
     clock = torch.amax(torch.where(ops.valid, done, state.clock))
     return TierState(client=client, kv=state.kv, flash=flash, clock=clock)
 
@@ -243,9 +252,8 @@ def tier_step(
         data = torch.cat([data, torch.zeros((nbulk, bv), dtype=F32,
                                             device=dev)])
 
-    client, flash, out, done = storage.submit(
-        state.client, state.flash, ops, data=data, with_data=True
-    )
+    client, flash, out, done = _submit(storage, tier, state.client,
+                                       state.flash, ops, data)
 
     # Step latency: GPU compute overlaps the decode tenant's storage
     # critical path (latest fault or write-back completion).

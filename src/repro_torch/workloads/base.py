@@ -9,7 +9,9 @@ A ``Workload`` is a static generator object with three decisions:
 
 All randomness is counter-based (xorshift hash of the request id, the
 workload seed and a per-device ``salt``), so the port draws the same
-stream as the reference from the same ids.
+stream as the reference from the same ids. On an M-drive array the
+request hooks take (M, N) ids and an (M, 1) salt column (drive d's salt
+is d), and each drive draws the stream a drive of that salt draws alone.
 """
 from __future__ import annotations
 

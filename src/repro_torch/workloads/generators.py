@@ -169,8 +169,9 @@ class PoissonOpenLoop(Workload):
         # Rows are SQ-major (num_sqs, fetch_width): each SQ's m completed
         # slots materialize its next m arrivals, chained off the anchor.
         gaps = torch.where(valid, self.gap_us(new_req, cfg, salt), 0.0)
-        chained = seq_cumsum(gaps.reshape(cfg.num_sqs, -1), 1)
-        return anchor + chained.reshape(new_req.shape), valid
+        lead = tuple(gaps.shape[:-1])
+        chained = seq_cumsum(gaps.reshape(lead + (cfg.num_sqs, -1)), -1)
+        return anchor + chained.reshape(gaps.shape), valid
 
 
 @dataclasses.dataclass(frozen=True)

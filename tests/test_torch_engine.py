@@ -240,10 +240,17 @@ def test_unported_branches_raise_when_built(kw):
 
 
 def test_array_simulation_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        te.simulate(tt.EngineConfig(**SMALL), tt.SSDConfig(),
-                    tt.WorkloadConfig(io_depth=4), rounds=1, num_devices=2,
-                    device="cpu")
+    """The array is ported now (``tests/test_torch_array.py`` holds it
+    against the reference): ``simulate(num_devices=2)`` returns a state
+    with a leading (2,) axis on every leaf, and an array of no drives
+    raises."""
+    args = (tt.EngineConfig(**SMALL), tt.SSDConfig(),
+            tt.WorkloadConfig(io_depth=4))
+    state = te.simulate(*args, rounds=1, num_devices=2, device="cpu")
+    assert all(v.shape[0] == 2 for v in
+               convert.engine_state_to_numpy(state).values())
+    with pytest.raises(ValueError, match="num_devices"):
+        te.simulate(*args, rounds=1, num_devices=0, device="cpu")
 
 
 def test_metrics_of_a_port_run():

@@ -337,9 +337,12 @@ def test_serve_cli_runs_on_the_cpu(capsys):
 
 
 def test_multi_drive_tier_is_not_ported():
+    """The striped tier is ported now (``tests/test_torch_array_client.py``
+    holds it against the reference); a stripe wider than the array
+    raises."""
     cfg = configs.get_config("yi-34b", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+    with pytest.raises(ValueError, match="stripe_width=3"):
         kv_tier.decode_tokens_per_s(
-            cfg, kv_tier.KVTierConfig(num_devices=2, **TIER),
+            cfg, kv_tier.KVTierConfig(num_devices=2, stripe_width=3, **TIER),
             types.SSDConfig(**SLOW), types.EngineConfig(**ECFG), 2, 16, 2,
             device="cpu")

@@ -30,6 +30,7 @@ from repro.core.client import StorageClient as JClient
 from repro_torch import convert
 from repro_torch.apps import vector_search as tvs
 from repro_torch.convert import ulp_distance
+from repro_torch.core import xla_math
 
 N = 1024
 DIST_ULP = 0
@@ -161,16 +162,16 @@ def test_knn_graph_and_ground_truth_are_the_reference_s(reference):
 
 @pytest.mark.parametrize("n", [1, 5, 24, 32, 33, 100, 128, 1025])
 def test_lane_sum_is_xla_sum(n):
-    """``_lane_sum`` adds in the compiled ``jnp.sum``'s order (windows of
-    32 past 32 elements), bit for bit, and ``_ordered_mean`` is the
-    compiled ``jnp.mean``."""
+    """``xla_math.lane_sum`` adds in the compiled ``jnp.sum``'s order
+    (windows of 32 past 32 elements), bit for bit, and
+    ``xla_math.lane_mean`` is the compiled ``jnp.mean``."""
     x = np.random.default_rng(n).random((257, n)).astype(np.float32) * 3
     same = jax.jit(lambda a: jnp.sum(a, axis=-1))(x)
     np.testing.assert_array_equal(
-        tvs._lane_sum(torch.from_numpy(x)).numpy().view(np.int32),
+        xla_math.lane_sum(torch.from_numpy(x)).numpy().view(np.int32),
         np.asarray(same).view(np.int32))
     row = x[0] * 1000
-    assert tvs._ordered_mean(torch.from_numpy(row)) == float(
+    assert float(xla_math.lane_mean(torch.from_numpy(row))) == float(
         jax.jit(jnp.mean)(row))
 
 
@@ -253,8 +254,8 @@ def test_merge_top_matches_reference():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tvs.case_study(n=64, batch=4, num_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="divisible by num_devices=3"):
+        tvs.case_study(n=64, batch=4, num_devices=3, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         tvs.case_study(n=64, batch=4, cache_sets=8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
@@ -297,5 +298,5 @@ def test_make_search_binds_the_configs_of_search(reference):
                 assert torch.equal(got[k], v), k
             else:
                 assert got[k] == v, k
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tvs.make_search(cfg, ssd, ecfg=ecfg, num_devices=2)
+    with pytest.raises(ValueError, match="num_devices=0"):
+        tvs.make_search(cfg, ssd, ecfg=ecfg, num_devices=0)
