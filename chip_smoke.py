@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then
-runs twelve phases, printing one JSON line each:
+runs fourteen phases, printing one JSON line each:
 
   env              nvidia-smi's card name and power limit, torch/CUDA
                    versions, kernel build seconds
@@ -91,13 +91,35 @@ runs twelve phases, printing one JSON line each:
                    the 4 x 40M striped KV tier (fig 27) against the
                    reference; the four engine kernels' flattened calls
                    against per-drive plain calls
+  cache            the stage-0 page cache: fig 22's six rows at full size
+                   (the Zipf loop at depth 256 on D7_PS1010, 48 rounds,
+                   0 to 4096 sets of 4 ways), graphed, against the
+                   reference's hit rate, MIOPS, p50 and p99 to the last
+                   digit and against the CPU port's final state (the
+                   cache's tags and cursors included), with wall and
+                   device ms and device events a round; the 1024-set row
+                   with every kernel flag on against the CPU port; a
+                   cached 4-drive array, drive by drive against single
+                   drives; ``case_study(cache_sets=256)`` on one drive and
+                   striped over 4 against the same search on the CPU
+  qp               the coalescing completion queue: fig 21's seven rows at
+                   full size (1 to 32 completions a doorbell and the
+                   neutral QP, depth 1024, 32 rounds), graphed, against
+                   the reference's MIOPS, p50 and p99 to the last digit
+                   and the CPU port's state; each again with
+                   use_pallas_segscan on (the doorbell queue on seg_scan,
+                   one more launch a graphed round than the neutral QP's)
+                   against the CPU port with the same flag
   serve_tier       ``python -m repro_torch.launch.serve --arch starcoder2-3b
                    --iops 40e6``'s objects at full width (batch 4, prompt
                    32, 16 tokens) with the attention kernels on: generate
                    plus the SSD-backed KV tier, whose virtual-time stats
                    must reproduce the reference's; the tier again with
-                   fused_reap on, bit-identical; once the phase drops its
-                   objects, the card holds no more than before it
+                   fused_reap on, bit-identical; fig 28's hot-window x
+                   cache sweep (hot window 32, 64, 128 x cache off, small,
+                   large) against the reference's tokens/s, storage us and
+                   blocks a step; once the phase drops its objects, the
+                   card holds no more than before it
   serve_long       generate at full width, batch 8, prompt 4096, 128
                    tokens, kernels on, its decode step a CUDA graph, timed
                    beside an eager decode loop from the same prefill (equal
@@ -1892,6 +1914,384 @@ def phase_array(dev, card):
     return launches
 
 
+# -- phases: the page cache and the coalescing completion queue -------------
+
+# The reference's fig 22 (``benchmarks/figures.py::fig22_cache_hit_rate``,
+# the JAX package on a CPU: swarmio_cfg(cache=...) on D7_PS1010,
+# ZipfClosedLoop(io_depth=256, theta=0.9), 48 rounds, 4 ways, hit_us 0.5,
+# chase 2), by number of sets (0: the cache off). Virtual numbers of the
+# emulated drive, deterministic, not speeds of any chip;
+# tests/test_torch_figures_cache.py recomputes them.
+CACHE_SETS = (0, 16, 64, 256, 1024, 4096)
+CACHE_REFERENCE = {
+    0: dict(hit_rate=0.0, virtual_miops=2.440632,
+            p50_us=2090.800048828125, p99_us=3586.6376953125),
+    16: dict(hit_rate=0.15144863724708557, virtual_miops=2.87405625,
+             p50_us=1746.5760498046875, p99_us=3586.6376953125),
+    64: dict(hit_rate=0.22518838942050934, virtual_miops=3.1499685,
+             p50_us=1459.024169921875, p99_us=3586.6376953125),
+    256: dict(hit_rate=0.32365289330482483, virtual_miops=3.605818,
+              p50_us=1018.1517333984375, p99_us=3586.6376953125),
+    1024: dict(hit_rate=0.5714728832244873, virtual_miops=5.691086,
+               p50_us=1.094113826751709, p99_us=3586.6376953125),
+    4096: dict(hit_rate=0.5781870484352112, virtual_miops=5.781673,
+               p50_us=1.094113826751709, p99_us=3586.6376953125),
+}
+# The reference's fig 21 (``benchmarks/figures.py::fig21_cq_coalescing``:
+# swarmio_cfg(poll_quantum_us=25, qp=...) on FUTURE_40M at io_depth 1024,
+# 32 rounds; QPConfig(cq_coalesce_n=n, cq_coalesce_us=50,
+# cq_doorbell_us=1, cq_poll_us=0.3, cqe_reap_us=0.02); 0 is the neutral
+# QP), recomputed by tests/test_torch_figures_qp.py.
+QP_COALESCE = (1, 2, 4, 8, 16, 32, 0)
+QP_REFERENCE = {
+    1: dict(virtual_miops=28.914586, p50_us=1018.1517333984375,
+            p99_us=1218.814208984375),
+    2: dict(virtual_miops=37.102824, p50_us=710.4974365234375,
+            p99_us=1018.1517333984375),
+    4: dict(virtual_miops=37.174752, p50_us=850.5258178710938,
+            p99_us=850.5258178710938),
+    8: dict(virtual_miops=37.852468, p50_us=850.5258178710938,
+            p99_us=850.5258178710938),
+    16: dict(virtual_miops=38.028032, p50_us=850.5258178710938,
+             p99_us=850.5258178710938),
+    32: dict(virtual_miops=38.163124, p50_us=850.5258178710938,
+             p99_us=850.5258178710938),
+    0: dict(virtual_miops=38.39838, p50_us=850.5258178710938,
+            p99_us=850.5258178710938),
+}
+# Fig 28's hot-window x cache sweep (``benchmarks/kv_serving.py::
+# fig28_kv_tier_hierarchy``, not quick: yi-34b's smoke dims, page 16, 100
+# us of GPU time a token, batch 4 after 512 tokens, 16 steps, a 2.5-MIOPS
+# drive, EngineConfig(num_units=8, fetch_width=64, cache=...); small = 64
+# sets x 4 ways, large = 512 x 8, both readahead 2), the reference on a
+# CPU; tests/test_torch_figures_tier_cache.py recomputes the hot_window 32
+# points.
+TIER_CACHES = {
+    "off": dict(enabled=False),
+    "small": dict(enabled=True, num_sets=64, ways=4, readahead=2),
+    "large": dict(enabled=True, num_sets=512, ways=8, readahead=2),
+}
+TIER_CACHE_REFERENCE = {
+    "hw32_cache_off": dict(tokens_per_s=8728.73423231198,
+                           avg_storage_us=458.256591796875,
+                           blocks_per_step=962.0),
+    "hw32_cache_small": dict(tokens_per_s=10532.1977236272,
+                             avg_storage_us=379.78778076171875,
+                             blocks_per_step=962.0),
+    "hw32_cache_large": dict(tokens_per_s=37243.96055786379,
+                             avg_storage_us=14.11871337890625,
+                             blocks_per_step=962.0),
+    "hw64_cache_off": dict(tokens_per_s=9245.57486043324,
+                           avg_storage_us=432.639404296875,
+                           blocks_per_step=898.0),
+    "hw64_cache_small": dict(tokens_per_s=11293.967130033654,
+                             avg_storage_us=354.17138671875,
+                             blocks_per_step=898.0),
+    "hw64_cache_large": dict(tokens_per_s=37243.96055786379,
+                             avg_storage_us=14.11871337890625,
+                             blocks_per_step=898.0),
+    "hw128_cache_off": dict(tokens_per_s=10487.53532998066,
+                            avg_storage_us=381.4051513671875,
+                            blocks_per_step=770.0),
+    "hw128_cache_small": dict(tokens_per_s=13204.06236066537,
+                              avg_storage_us=302.93707275390625,
+                              blocks_per_step=770.0),
+    "hw128_cache_large": dict(tokens_per_s=37243.96055786379,
+                              avg_storage_us=14.11871337890625,
+                              blocks_per_step=770.0),
+}
+
+
+CACHE_ROUNDS = 48            # fig 22's rounds
+QP_ROUNDS = 32               # fig 21's rounds
+CACHE_ARRAY_SETS = 1024      # the array row and the kernel-flags row
+CACHE_SEARCH_SETS = 256      # the vector search's cache: 1024 of 4096 blocks
+
+
+def graphed_run(cfg, ssd, wl, rounds, dev, reps=2):
+    """``rounds`` rounds of one drive through ``make_runner`` on the card
+    (the first call captures), timed ``reps`` times and profiled once.
+    Returns (final state, record, the graph's kernel launches a round)."""
+    from repro_torch.core import engine
+    from repro_torch.core.types import PlatformModel
+
+    state = engine.init_state(cfg, ssd, wl, device=dev)
+    runner = engine.make_runner(cfg, ssd, wl, PlatformModel(), rounds,
+                                device=dev)
+    t0 = time.perf_counter()
+    runner(state)
+    first_s = time.perf_counter() - t0
+    out, walls = timed_runs(lambda: runner(state), reps)
+    prof = profiled_window(lambda: runner(state), rounds)
+    wall_ms = statistics.median(walls) * 1e3 / rounds
+    return out, {"rounds": rounds, "wall_ms_per_round": wall_ms,
+                 "wall_s_runs": walls, "first_call_s_with_capture": first_s,
+                 **profile_summary(wall_ms, prof),
+                 "engine_kernel_device_ms_per_round":
+                     prof["engine_kernel_device_ms_per_round"],
+                 "launches_per_graph": runner.graph.launches}, \
+        runner.graph.launches
+
+
+def card_vs_cpu(out, cfg, ssd, wl, rounds, num_devices=1):
+    """Leaves of the card's final state that break their contract with the
+    port's eager run on the CPU (integer leaves equal, float leaves
+    bit-exact but the metric sums, within SUM_LEAF_ULP)."""
+    from repro_torch import convert
+    from repro_torch.core import engine
+    from repro_torch.core.types import PlatformModel
+
+    cpu = engine.simulate(cfg, ssd, wl, PlatformModel(), rounds=rounds,
+                          num_devices=num_devices, device="cpu")
+    return convert.leaf_differences(
+        convert.engine_state_to_numpy(cpu),
+        convert.engine_state_to_numpy(out),
+        dict.fromkeys(SUM_LEAVES, SUM_LEAF_ULP))
+
+
+def eager_vs_graph(out, cfg, ssd, wl, rounds, dev):
+    """One eager ``engine.run`` of ``rounds`` rounds on the card from the
+    state ``graphed_run`` starts from: the leaves in which it differs from
+    the graphed final state ``out`` (every leaf must be bit-identical) and
+    its wall ms a round."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import engine
+    from repro_torch.core.types import PlatformModel
+
+    state = engine.init_state(cfg, ssd, wl, device=dev)
+    t0 = time.perf_counter()
+    eager = engine.run(state, cfg, ssd, wl, PlatformModel(), rounds)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    return convert.leaf_differences(
+        convert.engine_state_to_numpy(eager),
+        convert.engine_state_to_numpy(out)), wall_ms
+
+
+def cache_numbers(m):
+    return {"hit_rate": float(m.hit_rate()),
+            "virtual_miops": float(m.iops()) / 1e6,
+            "p50_us": float(m.p50_us()), "p99_us": float(m.p99_us())}
+
+
+def phase_cache(dev, card):
+    """The stage-0 page cache. Fig 22's six rows at full size (the Zipf
+    loop at depth 256 on D7_PS1010, 48 rounds, 4 ways, hit_us 0.5, chase
+    2), graphed through make_runner with the reference's flags (all off):
+    hit rate, virtual MIOPS, p50 and p99 against ``CACHE_REFERENCE`` to
+    the last digit, the final state (``cache.tags`` and ``cache.rr``
+    included) against the CPU port's, wall and device ms and device events
+    a round; the 1024-set row's graphed state bit-identical to an eager
+    run on the card. That row again with ``KERNEL_FLAGS`` (counts reset
+    just before, read just after: die_contention and fused_reap must
+    launch), against the CPU port with the same flags and against its
+    own eager run on the card; then as a 4-drive array, graphed, whose drive d must equal a
+    single drive of salt d. Last, ``vector_search.case_study`` with
+    ``cache_sets`` on one drive and striped over 4 (n = 4096, batch 64,
+    2.5e6 IOPS), each against the same search on the CPU."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.apps import vector_search as vs
+    from repro_torch.bench import fig22_1024, local_1drive
+    from repro_torch.core import engine
+    from repro_torch.core.types import CacheConfig, PlatformModel
+    from repro_torch.kernels import ops
+
+    plat = PlatformModel()
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    _, ssd, wl = fig22_1024()
+    rows = []
+    for sets in CACHE_SETS:
+        cfg, _ = local_1drive(cache=CacheConfig(
+            enabled=sets > 0, num_sets=max(sets, 1), ways=4, hit_us=0.5,
+            chase=2))
+        out, rec, _ = graphed_run(cfg, ssd, wl, CACHE_ROUNDS, dev)
+        nums = cache_numbers(out.metrics)
+        vs_cpu = card_vs_cpu(out, cfg, ssd, wl, CACHE_ROUNDS)
+        bad = differing(nums, CACHE_REFERENCE[sets])
+        rows.append({"num_sets": sets, **nums,
+                     "completed": float(out.metrics.completed),
+                     "cache_hits": float(out.metrics.cache_hits), **rec,
+                     "card_vs_cpu_violations": vs_cpu,
+                     "card_vs_reference_differing": bad})
+        check(not bad, f"fig 22 at {sets} sets (card, reference) differs: "
+                       f"{bad}")
+        check(not vs_cpu, f"fig 22 at {sets} sets: card and CPU differ: "
+                          f"{vs_cpu}")
+        check(bool(torch.isfinite(out.metrics.sum_e2e)), "sum_e2e")
+        if sets == CACHE_ARRAY_SETS:
+            diff, eager_ms = eager_vs_graph(out, cfg, ssd, wl, CACHE_ROUNDS,
+                                            dev)
+            rows[-1].update(graph_vs_eager_differing_leaves=diff,
+                            eager_wall_ms_per_round=eager_ms)
+            check(not diff, f"fig 22 at {sets} sets: graphed and eager "
+                            f"states differ in {diff}")
+
+    cfg, ssd, wl = fig22_1024(**KERNEL_FLAGS)
+    ops.reset_launches()
+    on, on_rec, _ = graphed_run(cfg, ssd, wl, CACHE_ROUNDS, dev, reps=1)
+    torch.cuda.synchronize()
+    counted = dict(ops.LAUNCHES)
+    for k, v in counted.items():
+        launches[k] += v
+    on_vs_cpu = card_vs_cpu(on, cfg, ssd, wl, CACHE_ROUNDS)
+    on_vs_eager, on_eager_ms = eager_vs_graph(on, cfg, ssd, wl,
+                                              CACHE_ROUNDS, dev)
+    check(not on_vs_eager, f"fig 22 with the kernel flags: graphed and "
+                           f"eager states differ in {on_vs_eager}")
+    on_nums = cache_numbers(on.metrics)
+    check(not on_vs_cpu, f"fig 22 with the kernel flags: card and CPU "
+                         f"differ: {on_vs_cpu}")
+    # A read-only DSA round with every flag on folds the flash stage on
+    # die_contention (seg_scan has no caller there; the qp phase runs it).
+    for k in ("die_contention", "fused_reap"):
+        check(counted[k] > 0, f"{k} did not launch on the cached path")
+
+    # The 4-drive array of the 1024-set row, graphed; drive d against a
+    # single drive of salt d.
+    cfg, ssd, wl = fig22_1024()
+    m = 4
+    state = engine.init_array_state(cfg, ssd, wl, m, device=dev)
+    arr = engine.make_array_runner(cfg, ssd, wl, plat, CACHE_ROUNDS,
+                                   device=dev)(state)
+    a_np = convert.engine_state_to_numpy(arr)
+    vs_single = {}
+    for d in range(m):
+        one = engine.make_runner(cfg, ssd, wl, plat, CACHE_ROUNDS,
+                                 device=dev)(
+            engine.init_state(cfg, ssd, wl, salt=d, device=dev))
+        vs_single[d] = convert.leaf_differences(
+            convert.engine_state_to_numpy(one),
+            {k: v[d] for k, v in a_np.items()})
+    check(a_np["cache.tags"].shape == (m, CACHE_ARRAY_SETS, 4),
+          f"array cache tags {a_np['cache.tags'].shape}")
+    check(not any(vs_single.values()),
+          f"cached array drives differ from single drives: {vs_single}")
+
+    # case_study(cache_sets=...) on one drive and striped over 4, on the
+    # card; the same search on the CPU from the card's index.
+    searches = []
+    scfg = vs.SearchConfig()
+    for nd in (1, 4):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = vs.case_study(n=VS_N, cache_sets=CACHE_SEARCH_SETS,
+                            num_devices=nd, device=dev)
+        wall = time.perf_counter() - t0
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        # case_study's own index and queries, drawn and normalised on the
+        # card.
+        vecs, graph = vs._cached_index(VS_N, scfg.dim, scfg.degree, 0, dev)
+        q = vs.case_queries(64, scfg.dim, 0, dev)
+        vssd, vecfg = vs.case_configs(VS_N, 2.5e6, CACHE_SEARCH_SETS)
+        cpu = vs.search(q.cpu(), vecs.cpu(), graph.cpu(), scfg, vssd,
+                        ecfg=vecfg, num_devices=nd)
+        diff = search_differences(out, cpu)
+        _, plain = vs.case_configs(VS_N, 2.5e6)
+        off = vs.search(q, vecs, graph, scfg, vssd, ecfg=plain,
+                        num_devices=nd)
+        searches.append({"devices": nd, "cache_sets": CACHE_SEARCH_SETS,
+                         "n": VS_N, "batch": 64, "t_max_iops": 2.5e6,
+                         **search_numbers(out), "wall_s_with_capture": wall,
+                         "qps_cache_off": off["qps"],
+                         "card_vs_cpu_differing": diff})
+        check(not diff, f"cached search over {nd} drives: card and CPU "
+                        f"differ: {diff}")
+        check(out["qps"] > off["qps"] and 0.0 < out["recall"] <= 1.0,
+              f"cached search over {nd} drives: {search_numbers(out)}, "
+              f"{off['qps']} QPS with the cache off")
+    emit({"phase": "cache", "card": card, "rows": rows,
+          "kernel_flags_1024": {**on_nums, **on_rec,
+                                "card_vs_cpu_violations": on_vs_cpu,
+                                "graph_vs_eager_differing_leaves":
+                                    on_vs_eager,
+                                "eager_wall_ms_per_round": on_eager_ms,
+                                "launches": counted},
+          "array_1024": {"devices": m,
+                         "hit_rate": arr.metrics.hit_rate().tolist(),
+                         "aggregate_miops":
+                             float(engine.aggregate_iops(arr)) / 1e6,
+                         "drive_vs_single_drive_differing": vs_single},
+          "searches": searches, "launches": launches})
+    return launches
+
+
+def phase_qp(dev, card):
+    """The coalescing completion queue. Fig 21's seven rows at full size
+    (local_1drive at depth 1024, a 25 us poll quantum, 32 rounds; 1 to 32
+    completions a doorbell, then the neutral QP), graphed with the
+    reference's flags (all off): virtual MIOPS, p50 and p99 against
+    ``QP_REFERENCE`` to the last digit, the final state against the CPU
+    port's, wall and device ms and device events a round. Then every row
+    again with ``use_pallas_segscan`` on (counts reset just before, read
+    just after), so that the doorbell queue runs on ``seg_scan``: each
+    row's state against the CPU port's with the same flag. At one
+    completion a doorbell both graphed states must be bit-identical to an
+    eager run on the card."""
+    import torch
+
+    from repro_torch.bench import fig21_row
+    from repro_torch.kernels import ops
+
+    rows, launches = [], dict.fromkeys(ops.LAUNCHES, 0)
+    for n_coal in QP_COALESCE:
+        cfg, ssd, wl = fig21_row(n_coal)
+        out, rec, _ = graphed_run(cfg, ssd, wl, QP_ROUNDS, dev)
+        nums = {k: v for k, v in virtual_numbers(out.metrics).items()
+                if k in ("virtual_miops", "p50_us", "p99_us")}
+        vs_cpu = card_vs_cpu(out, cfg, ssd, wl, QP_ROUNDS)
+        bad = differing(nums, QP_REFERENCE[n_coal])
+        cfg_on = cfg.replace(use_pallas_segscan=True)
+        ops.reset_launches()
+        on, _, graph = graphed_run(cfg_on, ssd, wl, QP_ROUNDS, dev, reps=1)
+        torch.cuda.synchronize()
+        counted = dict(ops.LAUNCHES)
+        for k, v in counted.items():
+            launches[k] += v
+        on_vs_cpu = card_vs_cpu(on, cfg_on, ssd, wl, QP_ROUNDS)
+        eager = {}
+        if n_coal == 1:     # the costliest doorbell queue, eager on the card
+            for name, c, o in (("flags_off", cfg, out),
+                               ("segscan", cfg_on, on)):
+                diff, ms = eager_vs_graph(o, c, ssd, wl, QP_ROUNDS, dev)
+                eager[name] = {"graph_vs_eager_differing_leaves": diff,
+                               "eager_wall_ms_per_round": ms}
+                check(not diff, f"fig 21 at n=1 ({name}): graphed and "
+                                f"eager states differ in {diff}")
+        rows.append({"coalesce_n": n_coal, **nums,
+                     **({"graph_vs_eager": eager} if eager else {}),
+                     "completed": float(out.metrics.completed),
+                     "bell_time_max": float(out.cq.bell_time.max()), **rec,
+                     "card_vs_cpu_violations": vs_cpu,
+                     "card_vs_reference_differing": bad,
+                     "segscan": {**{k: v for k, v in virtual_numbers(
+                         on.metrics).items() if k in nums},
+                         "card_vs_cpu_violations": on_vs_cpu,
+                         "launches": counted, "launches_per_graph": graph}})
+        check(not bad, f"fig 21 at n={n_coal} (card, reference) differs: "
+                       f"{bad}")
+        check(not vs_cpu, f"fig 21 at n={n_coal}: card and CPU differ: "
+                          f"{vs_cpu}")
+        check(not on_vs_cpu, f"fig 21 at n={n_coal} on seg_scan: card and "
+                             f"CPU differ: {on_vs_cpu}")
+        check(counted["seg_scan"] > 0, f"seg_scan did not launch at "
+                                       f"n={n_coal}")
+    # The doorbell queue adds one seg_scan launch a graphed round to what
+    # the neutral QP's round launches.
+    per_round = {r["coalesce_n"]: r["segscan"]["launches_per_graph"]
+                 ["seg_scan"] for r in rows}
+    emit({"phase": "qp", "card": card, "rows": rows,
+          "seg_scan_launches_per_graphed_round": per_round,
+          "launches": launches})
+    check(all(v == per_round[0] + 1 for k, v in per_round.items() if k),
+          f"seg_scan launches a graphed round: {per_round}")
+    return launches
+
+
 # -- phases: the serving path -------------------------------------------------
 
 # The reference's kv_tier.decode_tokens_per_s at the serve command's
@@ -1909,6 +2309,43 @@ TIER_REL_TOL = 1e-5
 LOGIT_REL_BOUND = 0.05      # max |diff| <= 0.05 * max |logits|, per step
 LOGIT_MIN_COSINE = 0.999    # cosine of the two runs' logits, per step
 LEFT_BYTES_BOUND = 64 << 20  # device bytes a serving phase may leave behind
+
+
+def tier_cache_sweep(dev):
+    """Fig 28's hot-window x cache sweep on the card (the settings of
+    ``TIER_CACHE_REFERENCE``): each point's numbers and wall seconds, and
+    the points off the reference beyond ``TIER_REL_TOL``."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.types import CacheConfig, EngineConfig, SSDConfig
+    from repro_torch.serving import kv_tier
+
+    model = configs.get_config("yi-34b", smoke=True)
+    ssd = SSDConfig(t_max_iops=2.5e6, l_min_us=30.0, n_instances=64,
+                    num_blocks=1 << 14)
+    points, bad = [], {}
+    for hw in (32, 64, 128):
+        for name, kw in TIER_CACHES.items():
+            t0 = time.perf_counter()
+            r = kv_tier.decode_tokens_per_s(
+                model, kv_tier.KVTierConfig(page_tokens=16, hot_window=hw,
+                                            gpu_step_us=100.0), ssd,
+                EngineConfig(num_units=8, fetch_width=64,
+                             cache=CacheConfig(**kw)),
+                batch=4, start_len=512, n_steps=16, device=dev)
+            torch.cuda.synchronize()
+            key = f"hw{hw}_cache_{name}"
+            rel = {k: abs(r[k] - v) / v
+                   for k, v in TIER_CACHE_REFERENCE[key].items()}
+            if r["data_check_max_abs"] != 0.0 or any(
+                    v > TIER_REL_TOL for v in rel.values()):
+                bad[key] = rel
+            points.append({"point": key, **{k: r[k] for k in (
+                "tokens_per_s", "avg_storage_us", "blocks_per_step",
+                "data_check_max_abs")}, "rel_to_reference": rel,
+                "wall_s": time.perf_counter() - t0})
+    return points, bad
 
 
 def phase_serve_tier(dev, card):
@@ -1961,6 +2398,7 @@ def phase_serve_tier(dev, card):
     check(reap == stats, f"fused_reap changed the tier: {reap} vs {stats}")
     prefill_s, decode_s = out["prefill_s"], out["wall_s"]
     first_row = toks[0].tolist()
+    sweep, sweep_bad = tier_cache_sweep(dev)
     del params, tokens, out, toks
     torch.cuda.synchronize()
     left = torch.cuda.memory_allocated(dev) - held
@@ -1970,7 +2408,10 @@ def phase_serve_tier(dev, card):
           "prefill_s": prefill_s, "decode_wall_s": decode_s,
           "wall_s_total": wall, "launches": launches,
           "reap_run_launches": reap_launches, "reap_run_identical": True,
+          "fig28_hot_window_x_cache": sweep,
           "allocated_bytes_left_after_phase": left})
+    check(not sweep_bad, f"fig 28's cache sweep off the reference: "
+                         f"{sweep_bad}")
     # The phase's weights alone are 6 GB. What may outlive it: the
     # capture stream's cuBLAS workspace (32 MiB, once a process) and the
     # engine's cached device constants (kilobytes).
@@ -2189,7 +2630,8 @@ def main() -> int:
     phase_exact(dev, card)
     phase_cpu_vs_card(dev, card)
     for counts in (phase_vector_search(dev, card), phase_workloads(dev, card),
-                   phase_array(dev, card), phase_serve_tier(dev, card),
+                   phase_array(dev, card), phase_cache(dev, card),
+                   phase_qp(dev, card), phase_serve_tier(dev, card),
                    phase_serve_long(dev, card)):
         for k, v in counts.items():
             launches[k] += v

@@ -30,9 +30,10 @@ own; tests feed the reference's index in through
 round-robin over an emulated M-drive array (``StorageClient.read_striped``,
 the drives' state stacked on a leading axis and priced in one pass), and
 the write-back goes to the array as one (M, B*K/M) batch
-(``submit_array``). The stage-0 page cache (``cache_sets > 0``, ROADMAP
-A13) and a remote fabric (``remote``, A12) are not ported and raise
-``NotImplementedError``.
+(``submit_array``). ``cache_sets > 0`` puts the stage-0 page cache (4
+ways, ``cache_sets`` sets) in front of the vector fetches, on one drive or
+one cache a drive of the array. A remote fabric (``remote``, ROADMAP A12)
+is not ported and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -472,8 +473,9 @@ def case_study(
 ) -> dict:
     """One (batch, width, IOPS) cell of the paper's fig 16 study, on
     ``device`` (``cuda`` unless named), over ``num_devices`` drives.
-    ``cache_sets > 0`` (ROADMAP A13) and ``remote`` (A12) are not
-    ported."""
+    ``cache_sets > 0`` enables the 4-way page cache of ``cache_sets`` sets
+    in front of the vector fetches (the fig 22 study); ``remote`` (ROADMAP
+    A12) is not ported."""
     if remote is True:
         fabric = REMOTE_FABRIC
     elif isinstance(remote, FabricConfig):

@@ -14,7 +14,7 @@ name: ``local_1drive``'s drive four times over, an emulated 4-drive array
 in one program.
 
     python -m repro_torch.bench [--rounds 24] [--mixed] [--plain] [--baseline]
-                                [--array M] [--trace PATH]
+                                [--array M] [--cache] [--qp N] [--trace PATH]
     python -m repro_torch.bench --serve [--steps 16] [--trace PATH]
 
 The first runs the drive read-only with the kernel flags on and profiles
@@ -31,7 +31,14 @@ M drives, one CUDA graph; ``--array 4`` is ``array_4drive``);
 ``--plain`` turns every kernel flag off, so that the rounds run the scans
 on ``segops.associative_scan``; ``--baseline`` runs ``nvmevirt_1drive``
 instead (``chip_smoke.py``'s ``main_path_baseline``: the per-request fold on
-``die_contention`` and the baseline datapath's scans). ``--serve`` profiles the
+``die_contention`` and the baseline datapath's scans). ``--cache`` runs
+fig 22's 1024-set row instead (``fig22_1024``: the Zipf loop at depth 256
+on ``D7_PS1010`` with the page cache on, 1024 sets x 4 ways, two chased
+hits a slot a round; ``chip_smoke.py``'s ``cache`` phase), and ``--qp N``
+fig 21's row N (``local_1drive`` at depth 1024, a 25 us poll quantum, N
+completions a doorbell with fig 21's doorbell, poll and reap costs, N = 0
+the neutral QP; the ``qp`` phase), both with the kernel flags of the read
+rounds. ``--serve`` profiles the
 serving decode step instead: starcoder2-3b at full width with the
 attention kernels on, batch 8 after a 4096-token prompt
 (``chip_smoke.py``'s ``serve_long``),
@@ -89,6 +96,31 @@ def local_1drive(**kw):
     )
     base.update(kw)
     return EngineConfig(**base), FUTURE_40M
+
+
+def fig22_1024(**kw):
+    """(EngineConfig, SSDConfig, workload) of fig 22's 1024-set row
+    (``benchmarks/figures.py::fig22_cache_hit_rate``); ``kw`` overrides
+    EngineConfig fields."""
+    from repro_torch.core.types import CacheConfig
+    from repro_torch.workloads import ZipfClosedLoop
+
+    cfg, _ = local_1drive(cache=CacheConfig(
+        enabled=True, num_sets=1024, ways=4, hit_us=0.5, chase=2), **kw)
+    return cfg, D7_PS1010, ZipfClosedLoop(io_depth=256, theta=0.9)
+
+
+def fig21_row(n_coal: int, **kw):
+    """(EngineConfig, SSDConfig, workload) of fig 21's row ``n_coal``
+    (``benchmarks/figures.py::fig21_cq_coalescing``; 0 is its neutral
+    QP); ``kw`` overrides EngineConfig fields."""
+    from repro_torch.core.types import QPConfig, WorkloadConfig
+
+    qp = (QPConfig(cq_coalesce_n=n_coal, cq_coalesce_us=50.0,
+                   cq_doorbell_us=1.0, cq_poll_us=0.3, cqe_reap_us=0.02)
+          if n_coal else QPConfig())
+    cfg, ssd = local_1drive(poll_quantum_us=25.0, qp=qp, **kw)
+    return cfg, ssd, WorkloadConfig(io_depth=1024)
 
 
 def array_4drive(**kw):
@@ -173,7 +205,8 @@ def profiled(fn, n: int, trace: "str | None" = None) -> dict:
 
 def profile_rounds(rounds: int, trace: "str | None", mixed: bool = False,
                    plain: bool = False, baseline: bool = False,
-                   num_devices: int = 1) -> dict:
+                   num_devices: int = 1, cache: bool = False,
+                   qp: "int | None" = None) -> dict:
     from repro_torch.core import engine
     from repro_torch.core.types import PlatformModel, WorkloadConfig
     from repro_torch.workloads import MixedReadWrite
@@ -181,13 +214,17 @@ def profile_rounds(rounds: int, trace: "str | None", mixed: bool = False,
     dev = torch.device("cuda", 0)
     on = not plain
     flags = dict(use_pallas=on, use_pallas_segscan=on, use_pallas_reap=on)
+    wl = (MixedReadWrite(read_frac=0.7, io_depth=256) if mixed
+          else WorkloadConfig(io_depth=256))
     if baseline:
         cfg, ssd = nvmevirt_1drive(use_pallas_flash=on, **flags)
+    elif cache:
+        cfg, ssd, wl = fig22_1024(**flags)
+    elif qp is not None:
+        cfg, ssd, wl = fig21_row(qp, **flags)
     else:
         cfg, ssd = local_1drive(emulate_data=True,
                                 use_pallas_flash=mixed and on, **flags)
-    wl = (MixedReadWrite(read_frac=0.7, io_depth=256) if mixed
-          else WorkloadConfig(io_depth=256))
     plat = PlatformModel()
     if num_devices == 1:
         state = engine.init_state(cfg, ssd, wl, device=dev)
@@ -208,6 +245,10 @@ def profile_rounds(rounds: int, trace: "str | None", mixed: bool = False,
     path = "mixed 70/30 rounds" if mixed else "read rounds"
     if baseline:
         path = "NVMeVirt baseline " + path
+    elif cache:
+        path = "fig 22's 1024-set cached Zipf rounds"
+    elif qp is not None:
+        path = f"fig 21's rounds at {qp} completions a doorbell"
     if num_devices > 1:
         path = f"{num_devices}-drive array, " + path
     return {"path": path + (", kernels off" if plain else ""),
@@ -267,17 +308,30 @@ def main() -> None:
                     help="profile rounds of the NVMeVirt baseline")
     ap.add_argument("--array", type=int, default=1, metavar="M",
                     help="profile rounds of an M-drive array")
+    ap.add_argument("--cache", action="store_true",
+                    help="profile fig 22's 1024-set cached rounds")
+    ap.add_argument("--qp", type=int, default=None, metavar="N",
+                    help="profile fig 21's rounds at N completions a "
+                         "doorbell (0: the neutral QP)")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace here")
     args = ap.parse_args()
+    # --cache and --qp bring their own drive and workload: they take no
+    # other rounds' option, so the label names the rounds profiled.
+    own = [f for f, on in (("--cache", args.cache),
+                           ("--qp", args.qp is not None),
+                           ("--mixed", args.mixed),
+                           ("--baseline", args.baseline)) if on]
+    if (args.cache or args.qp is not None) and len(own) > 1:
+        ap.error(" and ".join(own) + " do not combine")
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.bench needs a CUDA device")
     if args.serve:
         res = profile_decode(args.steps, args.trace)
     else:
         res = profile_rounds(args.rounds, args.trace, args.mixed, args.plain,
-                             args.baseline, args.array)
+                             args.baseline, args.array, args.cache, args.qp)
     print(json.dumps(res), flush=True)
 
 

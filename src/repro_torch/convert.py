@@ -5,7 +5,9 @@ A state is exchanged as a flat dict of numpy arrays keyed by the
 reference's pytree paths, e.g. ``"device.tstate.busy_until"`` (the field
 names of the two packages' dataclasses are the same, so the paths are
 too). Dtypes and shapes pass through unchanged: float32, int32 and bool,
-and an M-drive array's leading ``(M,)`` axis on every leaf. Engine states
+and an M-drive array's leading ``(M,)`` axis on every leaf. The optional
+page cache (``cache.tags``, ``cache.rr``) travels when it is there and is
+``None`` when its leaves are not. Engine states
 (``EngineState``) and client states (``ClientState``) go both ways. Model
 parameters are exchanged as the reference's own nested tree of dicts and
 tuples with numpy leaves (``model_params_from_numpy``).
@@ -42,6 +44,12 @@ def _build(cls, leaves: Dict[str, np.ndarray], prefix: str, device):
     for f in dataclasses.fields(cls):
         t = hints[f.name]
         path = prefix + f.name
+        opt = [a for a in typing.get_args(t) if a is not type(None)]
+        if len(opt) == 1 and type(None) in typing.get_args(t):
+            # An optional sub-state (the page cache): present when its
+            # leaves are.
+            t = opt[0] if any(k.startswith(path + ".") for k in leaves) \
+                else type(None)
         if dataclasses.is_dataclass(t):
             kw[f.name] = _build(t, leaves, path + ".", device)
         elif t is type(None):

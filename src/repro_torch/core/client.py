@@ -19,19 +19,24 @@ Everything else is a thin wrapper:
     read_replicated               least-loaded replica routing
     write_replicated              replica fan-out, durable at the slowest
 
-The stage-0 page cache waits for ROADMAP A13 (the pipeline rejects
-``cache.enabled`` when it is built), the remote fabric for A12.
+With ``cfg.cache.enabled`` the state carries the stage-0 page cache
+(``core/cache.py``; an array's stacked, one a drive): read hits complete
+at ``hit_us`` and never post an SQE, and every valid op fills the cache
+(write-allocate). The remote fabric waits for ROADMAP A12 (the pipeline
+rejects ``fabric.remote`` when it is built).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 import numpy as np
 
+from repro_torch.core import cache as cache_mod
 from repro_torch.core import frontend
+from repro_torch.core.cache import CacheState
 from repro_torch.core.device import DevicePipeline, DeviceState
 from repro_torch.core.device import init_array_state as _stack_states
 from repro_torch.core.frontend import SQRings, scatter_drop
@@ -57,10 +62,10 @@ from repro_torch.core.types import (
 
 @dataclasses.dataclass(frozen=True)
 class ClientState:
-    """Virtual-time device state carried across application steps (the
-    reference's stage-0 ``cache`` field comes with ROADMAP A13)."""
+    """Virtual-time device state carried across application steps."""
 
     dev: DeviceState
+    cache: Optional[CacheState] = None   # stage-0 GPU page cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +81,14 @@ class StorageClient:
     def init_state(self, device: "torch.device | str | None" = None
                    ) -> ClientState:
         """Fresh state on ``device`` (``cuda`` unless named), shaped from
-        ``cfg`` exactly as ``engine_round`` prices with."""
-        return ClientState(dev=self.pipeline.init_state(resolve_device(device)))
+        ``cfg`` exactly as ``engine_round`` prices with; with the page cache
+        on, an empty cache."""
+        device = resolve_device(device)
+        return ClientState(
+            dev=self.pipeline.init_state(device),
+            cache=(CacheState.init(self.cfg.cache, device)
+                   if self.cfg.cache.enabled else None),
+        )
 
     def init_array_state(self, num_devices: int,
                          device: "torch.device | str | None" = None
@@ -146,6 +157,34 @@ class StorageClient:
             done = scatter_last(done, idx, res.reaped)
         return dev, done
 
+    def _priced(
+        self,
+        state: ClientState,
+        lba: torch.Tensor,       # (..., N) i32
+        ops: StorageOps,
+    ) -> Tuple[ClientState, torch.Tensor]:
+        """Stage 0, then the ring path: read hits complete at ``hit_us``
+        and stay off the rings; every valid op fills the cache afterwards
+        (write-allocate). One drive's batch or an array's (M, N), each
+        drive with its own cache. Returns (state', done)."""
+        ccfg = self.cfg.cache
+        valid = ops.valid
+        submit_valid = valid
+        if ccfg.enabled:
+            hit, hit_done = cache_mod.serve(
+                state.cache, lba, valid, ops.t_submit, ccfg)
+            hit = hit & (ops.opcode != OP_WRITE)  # only reads hit
+            submit_valid = valid & ~hit
+        dev, done = self._submit_through_rings(
+            state.dev, lba, ops.t_submit, submit_valid, ops.opcode,
+            ops.tenant,
+        )
+        cstate = state.cache
+        if ccfg.enabled:
+            done = torch.where(hit, hit_done, done)
+            cstate = cache_mod.insert(cstate, lba, valid, ccfg)
+        return ClientState(dev=dev, cache=cstate), done
+
     # -- the unified op API --------------------------------------------------
     def submit(
         self,
@@ -161,18 +200,18 @@ class StorageClient:
         scattered in (a new tensor; of several writes to one LBA in a
         batch the last lands), the gathered rows of every valid slot when
         ``with_data`` (reads see this batch's writes), and the per-slot
-        consumer-observed completion times."""
+        consumer-observed completion times. With the page cache on, read
+        hits complete at ``hit_us`` without posting an SQE and every valid
+        op fills the cache."""
         lba = ops.lba.to(I32)
         valid = ops.valid
-        dev, done = self._submit_through_rings(
-            state.dev, lba, ops.t_submit, valid, ops.opcode, ops.tenant
-        )
+        state, done = self._priced(state, lba, ops)
         if data is not None:
             dst = torch.where(valid & (ops.opcode == OP_WRITE), lba,
                               flash.shape[0])
             flash = scatter_last(flash, dst, data)
         out = flash[torch.where(valid, lba, 0).long()] if with_data else None
-        return ClientState(dev=dev), flash, out, done
+        return state, flash, out, done
 
     def submit_array(
         self,
@@ -188,12 +227,11 @@ class StorageClient:
         and gather against the shared block store happen once for the
         array (of several writes to one LBA the last in drive-major order
         lands). Returns ``(state', flash', data_out, done)`` with ``done``
-        shaped (M, N)."""
+        shaped (M, N). Each drive's page cache serves and fills from its own
+        row."""
         m, n = ops.lba.shape
         lba = ops.lba.to(I32)
-        dev, done = self._submit_through_rings(
-            state.dev, lba, ops.t_submit, ops.valid, ops.opcode, ops.tenant
-        )
+        state, done = self._priced(state, lba, ops)
         if data is not None:
             dst = torch.where(ops.valid & (ops.opcode == OP_WRITE), lba,
                               flash.shape[0]).reshape(-1)
@@ -201,7 +239,7 @@ class StorageClient:
                 flash, dst, data.reshape((m * n,) + tuple(data.shape[2:])))
         out = (flash[torch.where(ops.valid, lba, 0).long()] if with_data
                else None)
-        return ClientState(dev=dev), flash, out, done
+        return state, flash, out, done
 
     def submit_striped(
         self,

@@ -6,13 +6,17 @@
     stage 2b  target completion times (``timing.update``)
     stage 3   the backend data path (DSA offload or baseline workers)
     stage 4   the flash backend (writes, GC, mapping misses)
-    stage 5   posting to the CQ paired with each SQ and reaping (``qp``)
+    stage 5   posting to the CQ paired with each SQ and reaping (``qp``),
+              neutral or coalescing
 
-This slice ports the local-drive branch in program lock order, under
-both timing modes (aggregated and the per-request baseline) and both
-frontends (distributed and the centralized baseline). The branches it
-does not port are rejected when the pipeline is built — never
-at run time — each with the ROADMAP item that will bring it.
+(Stage 0, the page cache, sits in front of the rings: ``core/cache.py``,
+driven by the engine and the client.) The port has the local-drive branch
+in program lock order, under both timing modes (aggregated and the
+per-request baseline) and both frontends (distributed and the centralized
+baseline). The branches it does not have yet (the local timing scope,
+A3; the ready-time lock order, A4; the remote fabric, A12; the
+sanitizer, A9) are rejected when the pipeline is built — never at run
+time — each with the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
@@ -135,8 +139,6 @@ _UNPORTED = (
     (lambda c: c.timing_scope == "local", "timing_scope='local'", "A3"),
     (lambda c: c.lock_order == "ready_time", "lock_order='ready_time'", "A4"),
     (lambda c: c.fabric.remote, "fabric.remote", "A12"),
-    (lambda c: c.cache.enabled, "cache.enabled", "A13"),
-    (lambda c: not c.qp.neutral, "a non-neutral QPConfig", "A8"),
     (lambda c: c.sanitize, "sanitize=True", "A9"),
 )
 
@@ -283,7 +285,7 @@ class DevicePipeline:
         else:
             cq, reaped = qp.post_and_reap(
                 cq, batch.sq_id, done, batch.req_id, valid, cfg.qp,
-                posted_rank=cq_rank, posted_counts=cq_counts,
+                posted_rank=cq_rank, use_pallas=pallas, posted_counts=cq_counts,
                 fused_scatter=compact, use_pallas_reap=cfg.use_pallas_reap,
             )
         res = PipelineResult(

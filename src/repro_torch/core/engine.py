@@ -4,6 +4,11 @@ One round: dispatchers fetch newly visible SQ entries (frontend), the
 shared ``DevicePipeline`` prices them (lock, timing model, data path,
 flash backend, CQ post and reap), the metrics and the functional block
 copies are updated, and the workload resubmits each completed slot.
+With ``cfg.cache`` enabled the round's completed reads fill the stage-0
+page cache (``core/cache.py``) and the resubmissions pass through it
+first: a read that hits completes at ``hit_us`` and its slot proposes its
+next request at once, up to ``chase`` times a round (``_chase``, a static
+loop), so ``req_counter`` advances by ``n * (chase + 1)``.
 
 ``run`` is the eager body, a Python loop over rounds, as the reference's
 ``run`` is the body that its ``make_runner`` compiles. On a card,
@@ -31,7 +36,9 @@ import numpy as np
 import torch
 
 from repro_torch import cuda_graph
+from repro_torch.core import cache as cache_mod
 from repro_torch.core import datapath, frontend, segops
+from repro_torch.core.cache import CacheState
 from repro_torch.core.device import DevicePipeline, DeviceState, check_ported
 from repro_torch.core.device import init_array_state as init_array_state_of
 from repro_torch.core.frontend import SQRings
@@ -40,6 +47,7 @@ from repro_torch.core.segops import segment_sum
 from repro_torch.core.types import (
     F32,
     I32,
+    OP_READ,
     EngineConfig,
     PlatformModel,
     SSDConfig,
@@ -51,8 +59,6 @@ from repro_torch.workloads import Workload, as_workload
 FAR = 3e38
 
 HIST_BUCKETS = 64
-HIST_LO_US = 1.0
-HIST_DECADES = 5.0
 
 
 # Lower edge of buckets 1..63 as float32 bit patterns: the smallest
@@ -89,14 +95,46 @@ def latency_bucket(lat_us: torch.Tensor) -> torch.Tensor:
     return torch.searchsorted(edges, lat_us, right=True).to(I32)
 
 
+def _bucket_of(lat_us: float) -> int:
+    """``latency_bucket`` of one float32 latency, on the host."""
+    bits = np.array(_EDGE_BITS, dtype=np.uint32).view(np.float32)
+    return int(np.searchsorted(bits, np.float32(lat_us), side="right"))
+
+
+# The percentile each bucket reports, as float32 bit patterns: the
+# reference's ``1.0 * 10 ** ((idx + 0.5) * 5/64)`` in float32, whose power
+# is XLA's ``powf``. ``torch.pow`` on the card rounds some of them an ULP
+# apart (buckets 36 and 40 among them: 710.4973754882812 for
+# 710.4974365234375), so the port looks the value up
+# (tests/test_torch_engine.py checks all 64 against the reference).
+_PCT_BITS = (
+    0x3f8c0bec, 0x3fa7a5cc, 0x3fc8b041, 0x3ff03dbf, 0x400fcb69, 0x402c2263,
+    0x404e0f36, 0x4076abb0, 0x4093a493, 0x40b0bdb7, 0x40d392f7, 0x40fd45ad,
+    0x4117981b, 0x4135789a, 0x41593c81, 0x41820673, 0x419ba6b5, 0x41ba53e6,
+    0x41df0cd6, 0x42058147, 0x421fd11b, 0x423f5078, 0x426504ff, 0x428913f2,
+    0x42a4180b, 0x42c46f33, 0x42eb260e, 0x430cbf18, 0x43287c49, 0x4349b103,
+    0x4371711b, 0x43908361, 0x43acfe9d, 0x43cf16d7, 0x43f7e746, 0x44146178,
+    0x44319fd6, 0x4454a1a7, 0x447e89b6, 0x44985a0e, 0x44b660c6, 0x44da526f,
+    0x4502accd, 0x451c6dd9, 0x453b4249, 0x45602a34, 0x45862c15, 0x45a09d93,
+    0x45c0453c, 0x45e62a00, 0x4609c353, 0x4624e9fc, 0x46456a84, 0x466c52e7,
+    0x468d732a, 0x46a953d8, 0x46cab30e, 0x46f2a601, 0x47113c44, 0x472ddbf1,
+    0x47501fca, 0x47792470, 0x47951f4e, 0x47b28316,
+)
+
+
+@functools.lru_cache(maxsize=8)
+def _percentiles_on(device: torch.device) -> torch.Tensor:
+    bits = torch.tensor(_PCT_BITS, dtype=torch.int64).to(I32)
+    return bits.view(F32).to(device)
+
+
 def hist_percentile(hist: torch.Tensor, q: float) -> torch.Tensor:
     """Approximate latency percentile: the geometric midpoint of the first
     bucket where the CDF reaches ``q``."""
     h = hist.reshape(-1, HIST_BUCKETS).sum(dim=0)
     c = torch.cumsum(h, 0, dtype=F32)
     idx = torch.argmax((c >= q * c[-1]).to(I32))
-    expo = (idx.to(F32) + 0.5) * (HIST_DECADES / HIST_BUCKETS)
-    return HIST_LO_US * torch.pow(10.0, expo)
+    return _percentiles_on(hist.device)[idx]
 
 
 def _sum(vals: torch.Tensor) -> torch.Tensor:
@@ -159,6 +197,10 @@ class Metrics:
     def avg_proc_us(self) -> torch.Tensor:
         return self.sum_proc / torch.clamp(self.completed, min=1.0)
 
+    def hit_rate(self) -> torch.Tensor:
+        """Fraction of completed requests served by the stage-0 cache."""
+        return self.cache_hits / torch.clamp(self.completed, min=1.0)
+
     def p50_us(self) -> torch.Tensor:
         return hist_percentile(self.lat_hist, 0.50)
 
@@ -177,7 +219,7 @@ class EngineState:
     rings: SQRings              # submission half of the queue pairs
     cq: CQRings                 # completion half (SQ q pairs with CQ q)
     device: DeviceState         # the pipeline's virtual-time state
-    cache: None                 # stage-0 page cache (not ported: None)
+    cache: Optional[CacheState]  # stage-0 page cache (None when off)
     clock: torch.Tensor         # () f32 virtual now
     flash: torch.Tensor         # (num_blocks, block_words) emulated flash
     bufs: torch.Tensor          # (num_bufs, block_words) I/O buffers
@@ -229,7 +271,8 @@ def init_state(
         rings=rings,
         cq=pipe.init_cq(device),
         device=pipe.init_state(device),
-        cache=None,
+        cache=(CacheState.init(cfg.cache, device) if cfg.cache.enabled
+               else None),
         clock=torch.zeros((), dtype=F32, device=device),
         flash=flash,
         bufs=bufs,
@@ -240,6 +283,71 @@ def init_state(
             max(cfg.fabric.num_tenants, getattr(wl, "num_tenants", 1)),
             device,
         ),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class _Proposals:
+    """Each slot's next request: id, LBA, opcode, submit time, validity."""
+
+    req: torch.Tensor
+    lba: torch.Tensor
+    op: torch.Tensor
+    t: torch.Tensor
+    valid: torch.Tensor
+
+
+def _chase(cstate, prop: _Proposals, m: Metrics, req_counter, tenant_rows,
+           anchor, cfg, ssd, wl, salt) -> "tuple[_Proposals, Metrics]":
+    """The stage-0 hit chase of one round. A proposed read that hits
+    completes at GPU-local latency without posting an SQE, and its slot
+    proposes its next request at once (ids ``req_counter + n*(k+1) +
+    slot``), up to ``chase`` hits a slot a round; what survives (the first
+    miss, or the last proposal) enters the rings. The hits add to the
+    metrics as the reference adds them, after the device completions: a
+    static loop with no read back to the host."""
+    ccfg = cfg.cache
+    n = prop.req.shape[-1]
+    lead = tuple(prop.req.shape[:-1])
+    device = prop.req.device
+    hit_us = float(np.float32(ccfg.hit_us))
+    zero = torch.zeros(lead, dtype=F32, device=device)
+    hits, hit_e2e, hit_last = zero, zero, zero
+    hit_first = torch.full(lead, FAR, dtype=F32, device=device)
+    for k in range(ccfg.chase):
+        hit, done_h = cache_mod.serve(
+            cstate, prop.lba, prop.valid & (prop.op == OP_READ), prop.t,
+            ccfg)
+        nh = torch.sum(hit.to(F32), dim=-1)
+        hits = hits + nh
+        hit_e2e = hit_e2e + nh * hit_us
+        hit_last = torch.maximum(
+            hit_last, torch.amax(torch.where(hit, done_h, 0.0), dim=-1))
+        hit_first = torch.minimum(
+            hit_first, torch.amin(torch.where(hit, prop.t, FAR), dim=-1))
+        ids = (req_counter[..., None] + n * (k + 1)
+               + torch.arange(n, dtype=I32, device=device))
+        s_t, s_valid = wl.next_submit(ids, done_h, hit, anchor, cfg, ssd,
+                                      salt)
+        prop = _Proposals(
+            req=torch.where(hit, ids, prop.req),
+            lba=torch.where(hit, wl.address(ids, ssd, salt), prop.lba),
+            op=torch.where(hit, wl.opcode(ids, salt, tenant=tenant_rows),
+                           prop.op),
+            t=torch.where(hit, s_t, prop.t),
+            valid=torch.where(hit, s_valid, prop.valid),
+        )
+    # Every hit of the round lands in the bucket of hit_us (one bucket).
+    bucket = torch.zeros_like(m.lat_hist)
+    bucket[..., _bucket_of(ccfg.hit_us)] = hits
+    return prop, dataclasses.replace(
+        m,
+        completed=m.completed + hits,
+        sum_e2e=m.sum_e2e + hit_e2e,
+        last_completion=torch.maximum(m.last_completion, hit_last),
+        first_submit=torch.minimum(m.first_submit, hit_first),
+        lat_hist=m.lat_hist + bucket,
+        cache_hits=m.cache_hits + hits,
     )
 
 
@@ -335,6 +443,20 @@ def engine_round(
         tenant_lat_hist=m.tenant_lat_hist + tenant_lat_hist,
     )
 
+    # -- stage 0: the page cache filters the resubmissions -------------------
+    cstate, ccfg = state.cache, cfg.cache
+    ids_per_round = n
+    if ccfg.enabled:
+        # Fills: this round's completed device reads are now resident.
+        cstate = cache_mod.insert(
+            cstate, batch.lba, valid & (batch.opcode == OP_READ), ccfg)
+        prop = _Proposals(new_req, new_lba, new_op, resub_t, resub_valid)
+        prop, metrics = _chase(cstate, prop, metrics, state.req_counter,
+                               tenant_rows, anchor, cfg, ssd, wl, salt)
+        new_req, new_lba, new_op = prop.req, prop.lba, prop.op
+        resub_t, resub_valid = prop.t, prop.valid
+        ids_per_round = n * (ccfg.chase + 1)
+
     resub_t = torch.where(resub_valid, resub_t, FAR)
     last_submit = torch.maximum(
         state.last_submit,
@@ -374,9 +496,9 @@ def engine_round(
     clock = torch.where(nxt < FAR, torch.maximum(stepped, nxt), stepped)
 
     return EngineState(
-        rings=rings, cq=cqr, device=dev, cache=None, clock=clock,
+        rings=rings, cq=cqr, device=dev, cache=cstate, clock=clock,
         flash=flash, bufs=bufs,
-        req_counter=state.req_counter + n,
+        req_counter=state.req_counter + ids_per_round,
         salt=state.salt, last_submit=last_submit, metrics=metrics,
     )
 

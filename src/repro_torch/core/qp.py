@@ -2,12 +2,16 @@
 ``repro/core/qp.py``).
 
 The device *posts* a completion entry to the CQ paired with the
-request's SQ and the GPU consumer *reaps* it. This slice ports the
-neutral completion path (no coalescing, zero posting and poll cost),
-which stores the entries but adds no virtual time; a non-neutral
-``QPConfig`` is rejected when ``DevicePipeline`` is built (ROADMAP A8).
-With ``use_pallas_reap`` the posting runs as the ``fused_reap`` kernel.
-An array's rings carry a leading ``(M,)`` drive axis, (M, Q, D).
+request's SQ, rings a CQ doorbell, and the GPU consumer *polls* the ring
+and *reaps* the entry. The neutral path (no coalescing, zero posting and
+poll cost, the default) stores the entries but adds no virtual time; with
+``use_pallas_reap`` its posting runs as the ``fused_reap`` kernel. A
+non-neutral ``QPConfig`` prices completion coalescing (``cq_coalesce_n``
+entries a doorbell, flushed after ``cq_coalesce_us``), the per-CQ
+doorbell poster (``cq_doorbell_us`` a doorbell, serialised by a queueing
+scan, on the ``seg_scan`` kernel under ``use_pallas_segscan``) and the
+consumer's poll and per-entry reap costs. An array's rings carry a
+leading ``(M,)`` drive axis, (M, Q, D).
 """
 from __future__ import annotations
 
@@ -16,8 +20,20 @@ from typing import Tuple
 
 import torch
 
+import numpy as np
+
 from repro_torch.core.frontend import scatter_drop
-from repro_torch.core.segops import segment_rank, segment_sum, take
+from repro_torch.core.segops import (
+    NEG,
+    lex_sort_by_segment,
+    queueing_scan,
+    segment_max,
+    segment_rank,
+    segment_sum,
+    segmented_prefix_max,
+    take,
+    unsort,
+)
 from repro_torch.core.types import F32, I32, QPConfig
 
 
@@ -116,33 +132,101 @@ def post_and_reap(
     valid: torch.Tensor,   # (N,) bool
     qp: QPConfig,
     posted_rank: "torch.Tensor | None" = None,  # (N,) epoch-plan CQ ranks
+    use_pallas: bool = False,
     posted_counts: "torch.Tensor | None" = None,  # (Q,) per-CQ counts
     fused_scatter: bool = False,
     use_pallas_reap: bool = False,
 ) -> Tuple[CQRings, torch.Tensor]:
-    """Post one epoch's completions and reap them. Returns (cq', reaped);
-    on the neutral path ``reaped == done`` for valid rows (0 otherwise)."""
-    if not qp.neutral:
-        raise NotImplementedError(
-            "a non-neutral QPConfig is not ported (ROADMAP A8)"
-        )
+    """Post one epoch's completions and reap them. Returns (cq', reaped):
+    when the consumer observes each valid row's completion (0 for invalid
+    rows). On the neutral path ``reaped == done``.
+
+    ``posted_rank``/``posted_counts`` hand in the epoch plan's per-CQ ranks
+    and counts; ``use_pallas`` runs the non-neutral path's doorbell queue
+    on the ``seg_scan`` kernel. That path orders its CQEs with
+    ``lex_sort_by_segment``: the reference's ``fused_sort`` and two-sort
+    branches give the same permutation, so the port has one;
+    ``fused_scatter`` moves the three ring channels in one scatter and
+    ``use_pallas_reap`` the neutral posting in the ``fused_reap`` kernel.
+    """
     q = cq.num_cqs
     key = torch.where(valid, cq_id, q).to(I32)
-    if use_pallas_reap:
-        from repro_torch.kernels import ops as kops
 
-        dt, vt, rid, counts = kops.fused_reap(
-            cq.done_time, cq.visible_time, cq.req_id, cq.tail,
-            key, done, req_id, valid,
-        )
-        cq = dataclasses.replace(
-            cq, done_time=dt, visible_time=vt, req_id=rid,
-            tail=cq.tail + counts, head=cq.head + counts,
+    if qp.neutral:
+        if use_pallas_reap:
+            from repro_torch.kernels import ops as kops
+
+            dt, vt, rid, counts = kops.fused_reap(
+                cq.done_time, cq.visible_time, cq.req_id, cq.tail,
+                key, done, req_id, valid,
+            )
+            cq = dataclasses.replace(
+                cq, done_time=dt, visible_time=vt, req_id=rid,
+                tail=cq.tail + counts, head=cq.head + counts,
+            )
+            return cq, torch.where(valid, done, 0.0)
+        rank = posted_rank if posted_rank is not None else segment_rank(key)
+        cq = _scatter_entries(
+            cq, key, rank, done, done, req_id, valid,
+            counts=posted_counts, fused=fused_scatter,
         )
         return cq, torch.where(valid, done, 0.0)
-    rank = posted_rank if posted_rank is not None else segment_rank(key)
-    cq = _scatter_entries(
-        cq, key, rank, done, done, req_id, valid,
-        counts=posted_counts, fused=fused_scatter,
+
+    n_coal = qp.cq_coalesce_n
+
+    # CQEs post in completion-time order within each CQ.
+    order, heads, rank = lex_sort_by_segment(key, done)
+    o = order.long()
+    s_done = take(done, o)
+    s_valid = take(valid, o)
+    s_key = take(key, o)
+    safe = torch.clamp(s_key, 0, q - 1)
+
+    # Coalescing groups: contiguous runs of n_coal entries per CQ.
+    gheads = heads | (torch.remainder(rank, n_coal) == 0)
+    last = torch.ones(tuple(gheads.shape[:-1]) + (1,), dtype=torch.bool,
+                      device=gheads.device)
+    tails = torch.cat([gheads[..., 1:], last], dim=-1)
+
+    # The doorbell fires when the group fills (its last member's time) or
+    # its timer expires (first member + cq_coalesce_us), whichever is
+    # earlier; an entry completing after that posts at its own time.
+    first = segmented_prefix_max(torch.where(gheads, s_done, NEG), gheads)
+    full = segmented_prefix_max(
+        torch.where(tails, s_done, NEG).flip(-1), tails.flip(-1)
+    ).flip(-1)
+    bell_raw = torch.minimum(full, first + _f32(qp.cq_coalesce_us))
+    ready = torch.maximum(s_done, bell_raw)
+
+    # Doorbell serialisation: one cq_doorbell_us of poster time a group,
+    # charged at its head, in a queue per CQ.
+    cost = torch.where(gheads & s_valid, _f32(qp.cq_doorbell_us), 0.0)
+    posted = queueing_scan(
+        ready, cost, heads, take(cq.bell_time, safe), use_pallas=use_pallas
     )
-    return cq, torch.where(valid, done, 0.0)
+    bell_time = torch.maximum(
+        cq.bell_time,
+        segment_max(torch.where(s_valid, posted, NEG), safe, q),
+    )
+
+    # Consumer reap: one poll pass a doorbell batch plus a ring read an
+    # entry, in posting order within the batch.
+    reap_rank = torch.remainder(rank, n_coal).to(F32)
+    reaped_s = (posted + _f32(qp.cq_poll_us)) + (reap_rank + 1.0) * _f32(
+        qp.cqe_reap_us)
+
+    cq = dataclasses.replace(
+        _scatter_entries(
+            cq, s_key, rank, s_done, posted, take(req_id, o), s_valid,
+            counts=posted_counts, fused=fused_scatter,
+        ),
+        bell_time=bell_time,
+    )
+    reaped = unsort(reaped_s, order)
+    return cq, torch.where(valid, reaped, 0.0)
+
+
+def _f32(x: float) -> float:
+    """A Python float holding the float32 value of ``x``."""
+    return float(np.float32(x))
+

@@ -294,6 +294,27 @@ def sort_by_segment(
     return plan.order, plan.heads, plan.rank
 
 
+def lex_sort_by_segment(
+    key: torch.Tensor,
+    t: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stable lexicographic sort by (key, t) along the last axis: (order,
+    heads, rank) as ``sort_by_segment`` gives them.
+
+    The reference sorts once with ``lax.sort`` on two keys; a stable sort
+    by ``t`` followed by a stable segment sort by ``key`` is the same
+    permutation, which is how the port computes it. Both sorts hold -0.0
+    and +0.0 equal (ties keep their row order), as ``lax.sort`` does
+    (``tests/test_torch_qp.py`` checks a segment holding both); the CQ's
+    done times are positive, or +0.0 on invalid rows under the key ``Q``.
+    """
+    ord1 = stable_argsort(t)
+    ord2 = stable_argsort(take(key, ord1))
+    order = take(ord1, ord2)
+    heads, rank = _heads_rank(take(key, order))
+    return order, heads, rank
+
+
 def unsort(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """``zeros.at[order].set(values)`` for a permutation ``order`` of each
     drive's rows: ``order`` is (..., N) and ``values`` (..., N, ...) with

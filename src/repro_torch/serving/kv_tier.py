@@ -20,7 +20,9 @@ reference scans over tokens and steps; here Python loops take their
 place, and nothing inside a step reads a value back to the host. A tier
 over several drives (``num_devices > 1``) stripes each step's batch
 round-robin over an emulated array (``StorageClient.submit_striped``,
-the drives' state stacked on a leading axis).
+the drives' state stacked on a leading axis). With ``EngineConfig.cache``
+enabled the client's stage-0 page cache serves re-faulted cold pages at
+GPU-local latency (fig 28's hot-window x cache sweep).
 """
 from __future__ import annotations
 

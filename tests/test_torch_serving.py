@@ -157,10 +157,18 @@ def test_client_refuses_what_it_cannot_price():
     ops = types.StorageOps.make(torch.arange(17, dtype=torch.int32))
     with pytest.raises(ValueError, match="exceeds ring capacity"):
         ct.submit(ct.init_state("cpu"), torch.zeros(64, 4), ops)
+    # The page cache is ported: a cached client starts empty and serves a
+    # re-read at hit_us without posting it.
     cached = StorageClient(types.SSDConfig(**SSD), types.EngineConfig(
         cache=types.CacheConfig(enabled=True)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        cached.init_state("cpu")
+    st = cached.init_state("cpu")
+    assert st.cache.tags.shape == (512, 4) and bool((st.cache.tags == -1).all())
+    lba = torch.arange(8, dtype=torch.int32)
+    flash = torch.zeros(64, 4)
+    st, _, first = cached.read(st, flash, lba, 10.0)
+    st, _, again = cached.read(st, flash, lba, 1000.0)
+    assert bool((first > 10.5).all())
+    assert again.tolist() == [1000.5] * 8
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -248,17 +256,22 @@ def check_stats(want, got):
     assert got["data_check_max_abs"] == 0.0
 
 
-@pytest.mark.parametrize("ssd", [SLOW], ids=["slow"])
-def test_decode_tokens_per_s_matches_reference(ssd):
+@pytest.mark.parametrize("ssd, cache", [
+    (SLOW, {}), (SLOW, dict(enabled=True, num_sets=16, ways=2, readahead=2)),
+], ids=["slow", "slow_cached"])
+def test_decode_tokens_per_s_matches_reference(ssd, cache):
     """tests/test_serving_loop.py's sizes: yi-34b smoke, batch 2, a
     16-token prompt, 4 decode steps (the fast drive runs in
-    test_serve_with_kv_tier_matches_reference)."""
+    test_serve_with_kv_tier_matches_reference); and with a small page
+    cache in front of the faults (fig 28's readahead)."""
     want = jtier.decode_tokens_per_s(
         jconfigs.get_config("yi-34b", smoke=True), jtier.KVTierConfig(**TIER),
-        jtypes.SSDConfig(**ssd), jtypes.EngineConfig(**ECFG), 2, 16, 4)
+        jtypes.SSDConfig(**ssd), jtypes.EngineConfig(
+            **ECFG, cache=jtypes.CacheConfig(**cache)), 2, 16, 4)
     got = kv_tier.decode_tokens_per_s(
         configs.get_config("yi-34b", smoke=True), kv_tier.KVTierConfig(**TIER),
-        types.SSDConfig(**ssd), types.EngineConfig(**ECFG), 2, 16, 4,
+        types.SSDConfig(**ssd), types.EngineConfig(
+            **ECFG, cache=types.CacheConfig(**cache)), 2, 16, 4,
         device="cpu")
     check_stats(want, got)
 

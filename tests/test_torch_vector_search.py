@@ -256,8 +256,6 @@ def test_merge_top_matches_reference():
 def test_unported_options_raise():
     with pytest.raises(ValueError, match="divisible by num_devices=3"):
         tvs.case_study(n=64, batch=4, num_devices=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tvs.case_study(n=64, batch=4, cache_sets=8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         tvs.case_study(n=64, batch=4, remote=True, device="cpu")
     with pytest.raises(ValueError, match="float32"):
