@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then
-runs fourteen phases, printing one JSON line each:
+runs fifteen phases, printing one JSON line each:
 
   env              nvidia-smi's card name and power limit, torch/CUDA
                    versions, kernel build seconds
@@ -110,6 +110,25 @@ runs fourteen phases, printing one JSON line each:
                    use_pallas_segscan on (the doorbell queue on seg_scan,
                    one more launch a graphed round than the neutral QP's)
                    against the CPU port with the same flag
+  fabric           the remote fabric, the ready-time lock and the tenant
+                   metrics: figs 23 and 25 (a remote 4 x 40M array, 8 link
+                   bandwidths and 4 RTTs, 7 switch roofs, 24 rounds), fig
+                   26 (WFQ shares, 192 rounds; bulk-write starvation, 96)
+                   and fig 29 (FIFO and WFQ 2:1 x program and ready-time
+                   lock, 96 rounds), graphed, against
+                   ``FABRIC_REFERENCE`` (every number to the last digit
+                   but a tenant's average E2E, within the bound of the
+                   reference's recursive sum) and three rows' states
+                   against the CPU port's; fig 24 through the remote
+                   4-drive client (n = 4096); ``remote_qos`` (the speed
+                   harness's remote two-tenant config) graphed against
+                   eager, then with main_path_read's flags through both
+                   runners, timed beside main_path_read (one more line,
+                   ``{"remote_qos_vs_main_path_read": ...}``), four more
+                   seg_scan launches a graphed round than the same loop
+                   on a local drive, and its state against the CPU
+                   port's; ``case_study(remote=True)`` on 1 and 4 drives
+                   against the CPU
   serve_tier       ``python -m repro_torch.launch.serve --arch starcoder2-3b
                    --iops 40e6``'s objects at full width (batch 4, prompt
                    32, 16 tokens) with the attention kernels on: generate
@@ -117,8 +136,10 @@ runs fourteen phases, printing one JSON line each:
                    must reproduce the reference's; the tier again with
                    fused_reap on, bit-identical; fig 28's hot-window x
                    cache sweep (hot window 32, 64, 128 x cache off, small,
-                   large) against the reference's tokens/s, storage us and
-                   blocks a step; once the phase drops its objects, the
+                   large) and its tenant mix (a bulk tenant on a switched
+                   remote fabric, FIFO and WFQ 4:1) against the
+                   reference's tokens/s, storage us and blocks a step;
+                   once the phase drops its objects, the
                    card holds no more than before it
   serve_long       generate at full width, batch 8, prompt 4096, 128
                    tokens, kernels on, its decode step a CUDA graph, timed
@@ -860,11 +881,13 @@ def phase_launch_floor(card):
 
 # -- phases: the main path ----------------------------------------------------
 
-# The virtual numbers of both paths as the eager runner has always given
-# them on the card (PERF.md): the graphed runner must reproduce them to
-# the last digit.
+# The virtual numbers of both paths: the reference's compiled run (the JAX
+# package on a CPU: swarmio_cfg() on FUTURE_40M, 24 rounds at io_depth
+# 256), which the port gives since its timing core fuses the reference's
+# three multiply-adds (35.566916 MIOPS before); the graphed and the eager
+# runner must reproduce them to the last digit.
 VIRTUAL = {
-    "read": {"virtual_miops": 35.566916, "p50_us": 201.6914520263672,
+    "read": {"virtual_miops": 35.566912, "p50_us": 201.6914520263672,
              "p99_us": 241.4418182373047},
     "mixed": {"virtual_miops": 0.5143973125},
     # The port run on the CPU (nvmevirt_1drive with the kernel flags, 24
@@ -2292,6 +2315,493 @@ def phase_qp(dev, card):
     return launches
 
 
+# -- phase: the remote fabric, the ready-time lock, the tenant metrics -------
+
+INF = float("inf")
+FABRIC_M = 4                 # figs 23 and 25: a 4 x 40M remote array
+FABRIC_ROUNDS = 24           # figs 23 and 25 (and remote_qos)
+FIG23_BWS = (500.0, 1000.0, 2000.0, 4000.0, 8000.0, 16000.0, 32000.0, INF)
+FIG23_RTTS = (0.0, 5.0, 20.0, 100.0)
+FIG25_SWITCHES = (2000.0, 4000.0, 8000.0, 16000.0, 32000.0, 64000.0, INF)
+FIG26_SHARES = ((1.0, 1.0), (2.0, 1.0), (3.0, 1.0), (7.0, 1.0))
+FIG26_STARVATION = (("fifo", ()), ("wfq_1_1", (1.0, 1.0)),
+                    ("wfq_4_1", (4.0, 1.0)))
+FIG29_ARBITERS = (("fifo", ()), ("wfq_2_1", (2.0, 1.0)))
+FIG29_ORDERS = ("program", "ready_time")
+FIG29_SLO_US = 500.0
+FIG24_FABRIC = dict(remote=True, rtt_us=5.0, tx_bytes_per_us=8000.0,
+                    rx_bytes_per_us=2000.0, wire_txn_us=0.2, mtu_batch=8,
+                    mtu_timeout_us=20.0)
+FIG24_N = 4096
+FIG28_FABRIC = dict(remote=True, tx_bytes_per_us=1_500.0,
+                    rx_bytes_per_us=1_500.0, rtt_us=2.0, wire_txn_us=0.2,
+                    mtu_batch=8, mtu_timeout_us=5.0,
+                    switch_bytes_per_us=1_500.0, switch_fanin=1)
+FIG28_MIXES = (("idle_fifo", 0, ()), ("bulk_fifo", 2048, ()),
+               ("bulk_wfq_4_1", 2048, (4.0, 1.0)))
+
+
+def _bw_key(x):
+    return "inf" if x == INF else f"{x:g}"
+
+
+def fabric_cells():
+    """Every engine row of figs 23, 25, 26 and 29 at the figure's own
+    settings (``benchmarks/figures.py``), as plain data that either
+    package builds its configs from: name -> dict(figure, engine
+    (``swarmio_cfg`` overrides), fabric (``FabricConfig`` fields), ssd
+    (``FUTURE_40M`` or ``D7_PS1010``), wl (``WorkloadConfig`` or
+    ``MultiTenant`` fields), rounds, devices)."""
+    cells = {}
+    for bw in FIG23_BWS:
+        fin = bw != INF
+        cells[f"fig23_bw_{_bw_key(bw)}"] = dict(
+            figure="fig23", engine={}, fabric=dict(
+                remote=True, rtt_us=10.0 if fin else 0.0,
+                tx_bytes_per_us=bw, rx_bytes_per_us=bw,
+                wire_txn_us=0.2 if fin else 0.0, mtu_batch=16 if fin else 1,
+                mtu_timeout_us=20.0 if fin else 0.0),
+            ssd="FUTURE_40M", wl=dict(io_depth=1024),
+            rounds=FABRIC_ROUNDS, devices=FABRIC_M)
+    for rtt in FIG23_RTTS:
+        cells[f"fig23_rtt_{rtt:g}"] = dict(
+            figure="fig23", engine={}, fabric=dict(remote=True, rtt_us=rtt),
+            ssd="FUTURE_40M", wl=dict(io_depth=1024),
+            rounds=FABRIC_ROUNDS, devices=FABRIC_M)
+    for sw in FIG25_SWITCHES:
+        cells[f"fig25_sw_{_bw_key(sw)}"] = dict(
+            figure="fig25", engine={}, fabric=dict(
+                remote=True, switch_bytes_per_us=sw, switch_fanin=FABRIC_M),
+            ssd="FUTURE_40M", wl=dict(io_depth=1024),
+            rounds=FABRIC_ROUNDS, devices=FABRIC_M)
+    qos = dict(num_sqs=16, fetch_width=64, num_units=8)
+    for w in FIG26_SHARES:
+        cells[f"fig26_share_{w[0]:g}:{w[1]:g}"] = dict(
+            figure="fig26", engine=qos, fabric=dict(
+                remote=True, rx_bytes_per_us=2000.0, tx_bytes_per_us=8000.0,
+                qos_weights=w),
+            ssd="FUTURE_40M",
+            wl=dict(io_depth=64, tenant_read_frac=(1.0, 1.0)),
+            rounds=192, devices=1)
+    for name, w in FIG26_STARVATION:
+        cells[f"fig26_starve_{name}"] = dict(
+            figure="fig26", engine=qos, fabric=dict(
+                remote=True, tx_bytes_per_us=400.0,
+                rx_bytes_per_us=16000.0, qos_weights=w),
+            ssd="D7_PS1010",
+            wl=dict(io_depth=64, tenant_read_frac=(1.0, 0.0)),
+            rounds=96, devices=1)
+    for name, w in FIG29_ARBITERS:
+        for order in FIG29_ORDERS:
+            cells[f"fig29_{name}_{order}"] = dict(
+                figure="fig29", engine=dict(
+                    num_sqs=16, fetch_width=64, num_units=16, sq_depth=128,
+                    lock_order=order),
+                fabric=dict(remote=True, tx_bytes_per_us=400.0,
+                            rx_bytes_per_us=16000.0, qos_weights=w),
+                ssd="D7_PS1010",
+                wl=dict(io_depth=64, tenant_read_frac=(1.0, 0.0),
+                        interleave=True),
+                rounds=96, devices=1)
+    return cells
+
+
+def port_cell(cell):
+    """(EngineConfig, SSDConfig, workload) of a ``fabric_cells`` entry."""
+    from repro_torch import bench
+    from repro_torch.core.types import FabricConfig, WorkloadConfig
+    from repro_torch.workloads import MultiTenant
+
+    cfg, _ = bench.local_1drive(fabric=FabricConfig(**cell["fabric"]),
+                                **cell["engine"])
+    ssd = getattr(bench, cell["ssd"])
+    wl = (MultiTenant(**cell["wl"]) if "tenant_read_frac" in cell["wl"]
+          else WorkloadConfig(**cell["wl"]))
+    return cfg, ssd, wl
+
+
+def fabric_numbers(figure, state):
+    """The figure's own numbers of a final state (virtual time: the
+    emulated drives', not speeds of any chip)."""
+    from repro_torch.core import engine
+
+    m = state.metrics
+    if figure in ("fig23", "fig25"):
+        return {"aggregate_miops": float(engine.aggregate_iops(state)) / 1e6,
+                "p50_us": float(m.p50_us()), "p99_us": float(m.p99_us())}
+    share = m.tenant_share()
+    if figure == "fig26":
+        lat = m.tenant_avg_e2e_us()
+        return {"share0": float(share[0]), "tenant0_e2e_us": float(lat[0]),
+                "tenant1_e2e_us": float(lat[1])}
+    p99 = m.tenant_p99_us()
+    return {"latency_p99_us": float(p99[0]), "bulk_p99_us": float(p99[1]),
+            "latency_slo_attainment": float(
+                m.slo_attainment(FIG29_SLO_US)[0]),
+            "latency_share": float(share[0])}
+
+
+def fig24_rows(device):
+    """Fig 24 (``benchmarks/figures.py::fig24_stripe_replication``) on the
+    port: stripe width 1-4 over a uniform batch, then 1-4 replicas of a
+    batch homed on drive 0, n = 4096 reads on a remote 4-drive client,
+    each from a fresh state: name -> (delivered Mreq/s, mean and p99 us)."""
+    import torch
+
+    from repro_torch import bench
+    from repro_torch.core.client import StorageClient
+    from repro_torch.core.types import F32, I32, EngineConfig, FabricConfig
+    from repro_torch.core.xla_math import lane_mean
+
+    ssd = bench.FUTURE_40M
+    client = StorageClient(ssd, EngineConfig(
+        num_units=8, fetch_width=64, fabric=FabricConfig(**FIG24_FABRIC)))
+    flash = torch.zeros((ssd.num_blocks, 8), dtype=F32, device=device)
+    n = FIG24_N
+    uniform = (torch.arange(n, dtype=I32, device=device) * 13) \
+        % ssd.num_blocks
+    skewed = torch.div(uniform, FABRIC_M, rounding_mode="floor") * FABRIC_M
+    rows = {}
+
+    def stats(done):
+        lat = torch.sort(done).values
+        return {"mreq_per_s": n / float(done.max()),
+                "mean_us": float(lane_mean(done)),
+                "p99_us": float(lat[int(0.99 * (n - 1))])}
+
+    for w in range(1, FABRIC_M + 1):
+        state = client.init_array_state(FABRIC_M, device)
+        rows[f"stripe_{w}"] = stats(client.read_striped(
+            state, flash, uniform, 0.0, stripe_width=w)[2])
+    for r in range(1, FABRIC_M + 1):
+        state = client.init_array_state(FABRIC_M, device)
+        rows[f"replicas_{r}"] = stats(client.read_replicated(
+            state, flash, skewed, 0.0, replicas=r)[2])
+    return rows
+
+
+def tenant_mix(device):
+    """Fig 28's tenant-mix points (``benchmarks/kv_serving.py``, not quick:
+    yi-34b's smoke dims, batch 4 after 512 tokens, 16 steps, a 40-MIOPS
+    drive behind a switched remote fabric, a bulk tenant of 0 or 2048
+    blocks a step, FIFO or WFQ 4:1): name -> the tier's numbers."""
+    from repro_torch import configs
+    from repro_torch.core.types import EngineConfig, FabricConfig, SSDConfig
+    from repro_torch.serving import kv_tier
+
+    model = configs.get_config("yi-34b", smoke=True)
+    ssd = SSDConfig(t_max_iops=40e6, l_min_us=30.0, n_instances=512,
+                    num_blocks=1 << 14)
+    out = {}
+    for name, bulk, weights in FIG28_MIXES:
+        ecfg = EngineConfig(num_units=8, fetch_width=64, fabric=FabricConfig(
+            qos_weights=weights, **FIG28_FABRIC))
+        r = kv_tier.decode_tokens_per_s(
+            model, kv_tier.KVTierConfig(page_tokens=16, hot_window=64,
+                                        gpu_step_us=100.0,
+                                        bulk_blocks_per_step=bulk),
+            ssd, ecfg, batch=4, start_len=512, n_steps=16, device=device)
+        out[name] = {k: r[k] for k in ("tokens_per_s", "avg_storage_us",
+                                       "blocks_per_step",
+                                       "data_check_max_abs")}
+    return out
+
+
+# The reference's figures 23-26 and 29 (``benchmarks/figures.py``, not
+# quick) and fig 28's tenant-mix points (``benchmarks/kv_serving.py``'s
+# sweep at its own settings), the JAX package run once on a CPU; fig 29
+# and fig 28 rebuilt from their settings, not by calling the functions
+# that write BENCH_*.json. Virtual time: numbers of the emulated drives,
+# not speeds of any chip. tests/test_torch_figures_fabric.py and
+# tests/test_torch_figures_qos.py recompute a subset.
+FABRIC_REFERENCE = {
+    "fig23": {
+        "bw_500": dict(aggregate_miops=3.473982, p50_us=5139.69677734375,
+                       p99_us=8816.8310546875),
+        "bw_1000": dict(aggregate_miops=6.7855845, p50_us=2502.865478515625,
+                        p99_us=5139.69677734375),
+        "bw_2000": dict(aggregate_miops=12.965157, p50_us=1459.024169921875,
+                        p99_us=2502.865478515625),
+        "bw_4000": dict(aggregate_miops=23.804368, p50_us=850.5258178710938,
+                        p99_us=1459.024169921875),
+        "bw_8000": dict(aggregate_miops=45.378184, p50_us=850.5258178710938,
+                        p99_us=1459.024169921875),
+        "bw_16000": dict(aggregate_miops=73.954032, p50_us=495.80682373046875,
+                         p99_us=850.5258178710938),
+        "bw_32000": dict(aggregate_miops=107.940536, p50_us=345.9891662597656,
+                         p99_us=593.52294921875),
+        "bw_inf": dict(aggregate_miops=152.556288, p50_us=495.80682373046875,
+                       p99_us=850.5258178710938),
+        "rtt_0": dict(aggregate_miops=152.556288, p50_us=495.80682373046875,
+                      p99_us=850.5258178710938),
+        "rtt_5": dict(aggregate_miops=151.812336, p50_us=495.80682373046875,
+                      p99_us=850.5258178710938),
+        "rtt_20": dict(aggregate_miops=146.177248, p50_us=495.80682373046875,
+                       p99_us=850.5258178710938),
+        "rtt_100": dict(aggregate_miops=107.957232, p50_us=414.1784362792969,
+                        p99_us=593.52294921875),
+    },
+    "fig24": {
+        "stripe_1": dict(mreq_per_s=3.1658624897016914,
+                         mean_us=702.1622314453125, p99_us=1281.9781494140625),
+        "stripe_2": dict(mreq_per_s=5.8353382449203615,
+                         mean_us=406.22613525390625, p99_us=696.2501220703125),
+        "stripe_3": dict(mreq_per_s=8.061299103163792,
+                         mean_us=310.6265869140625, p99_us=503.9386901855469),
+        "stripe_4": dict(mreq_per_s=10.121951749252492,
+                         mean_us=256.9290771484375, p99_us=401.8250732421875),
+        "replicas_1": dict(mreq_per_s=3.1658624897016914,
+                           mean_us=702.1622314453125,
+                           p99_us=1281.9781494140625),
+        "replicas_2": dict(mreq_per_s=5.8353382449203615,
+                           mean_us=406.22613525390625,
+                           p99_us=696.2501220703125),
+        "replicas_3": dict(mreq_per_s=8.061299103163792,
+                           mean_us=310.6265869140625,
+                           p99_us=503.9386901855469),
+        "replicas_4": dict(mreq_per_s=10.121951749252492,
+                           mean_us=256.9290771484375,
+                           p99_us=401.8250732421875),
+    },
+    "fig25": {
+        "sw_2000": dict(aggregate_miops=3.5365135, p50_us=5139.69677734375,
+                        p99_us=8816.8310546875),
+        "sw_4000": dict(aggregate_miops=7.0283195, p50_us=2502.865478515625,
+                        p99_us=4293.51025390625),
+        "sw_8000": dict(aggregate_miops=13.881159, p50_us=1218.814208984375,
+                        p99_us=2502.865478515625),
+        "sw_16000": dict(aggregate_miops=28.604272, p50_us=1218.814208984375,
+                         p99_us=2090.800048828125),
+        "sw_32000": dict(aggregate_miops=57.296448, p50_us=850.5258178710938,
+                         p99_us=1746.5760498046875),
+        "sw_64000": dict(aggregate_miops=113.010152, p50_us=593.52294921875,
+                         p99_us=1218.814208984375),
+        "sw_inf": dict(aggregate_miops=152.556288, p50_us=495.80682373046875,
+                       p99_us=850.5258178710938),
+    },
+    "fig26": {
+        "share_1:1": dict(share0=0.5006256103515625,
+                          tenant0_e2e_us=261.8939208984375,
+                          tenant1_e2e_us=262.5614318847656),
+        "share_2:1": dict(share0=0.6471467614173889,
+                          tenant0_e2e_us=198.11683654785156,
+                          tenant1_e2e_us=382.579833984375),
+        "share_3:1": dict(share0=0.7196875810623169,
+                          tenant0_e2e_us=177.0667266845703,
+                          tenant1_e2e_us=496.8709716796875),
+        "share_7:1": dict(share0=0.8270922303199768,
+                          tenant0_e2e_us=153.48284912109375,
+                          tenant1_e2e_us=909.9852905273438),
+        "starve_fifo": dict(share0=0.5925925970077515,
+                            tenant0_e2e_us=1889.2822265625,
+                            tenant1_e2e_us=2524.15478515625),
+        "starve_wfq_1_1": dict(share0=0.5, tenant0_e2e_us=252.1001434326172,
+                               tenant1_e2e_us=2650.13720703125),
+        "starve_wfq_4_1": dict(share0=0.5, tenant0_e2e_us=212.88671875,
+                               tenant1_e2e_us=4032.586669921875),
+    },
+    "fig29": {
+        "fifo_program": dict(latency_p99_us=2996.142822265625,
+                             bulk_p99_us=3586.6376953125,
+                             latency_slo_attainment=0.3125,
+                             latency_share=0.6274510025978088),
+        "fifo_ready_time": dict(latency_p99_us=2996.142822265625,
+                                bulk_p99_us=3586.6376953125,
+                                latency_slo_attainment=0.3125,
+                                latency_share=0.6270667314529419),
+        "wfq_2_1_program": dict(latency_p99_us=2090.800048828125,
+                                bulk_p99_us=3586.6376953125,
+                                latency_slo_attainment=0.2495126724243164,
+                                latency_share=0.5004878044128418),
+        "wfq_2_1_ready_time": dict(latency_p99_us=241.4418182373047,
+                                   bulk_p99_us=3586.6376953125,
+                                   latency_slo_attainment=0.9980506896972656,
+                                   latency_share=0.5004878044128418),
+    },
+    "fig28": {
+        "idle_fifo": dict(tokens_per_s=8983.457790969429,
+                          avg_storage_us=445.2628479003906,
+                          blocks_per_step=898.0),
+        "bulk_fifo": dict(tokens_per_s=3642.8564361262233,
+                          avg_storage_us=1098.0394287109375,
+                          blocks_per_step=898.0),
+        "bulk_wfq_4_1": dict(tokens_per_s=5130.079002089418,
+                             avg_storage_us=779.715087890625,
+                             blocks_per_step=898.0),
+    },
+}
+
+
+FABRIC_CPU_ROWS = ("fig23_bw_1000", "fig26_share_2:1",
+                   "fig29_wfq_2_1_ready_time")
+
+
+def fabric_violations(figure, got, want, state):
+    """The numbers of a row off the reference's. Every number must be
+    equal but a tenant's average E2E: the reference adds a tenant's
+    latencies one after another in float32 (``segment_sum``), the port
+    near-exactly, so the two averages may differ by that recursion's
+    error bound, ``(n - 1) * 2^-24`` of the sum over n completions
+    (Higham's gamma), plus one rounding of each quotient."""
+    bad = {}
+    done = state.metrics.tenant_completed.reshape(
+        -1, state.metrics.tenant_completed.shape[-1]).sum(0).tolist()
+    for k, v in want.items():
+        if k.endswith("_e2e_us"):
+            n = done[int(k[len("tenant")])]
+            if abs(got[k] - v) > (max(n - 1, 0) * 2.0 ** -24
+                                  + 2.0 ** -23) * v:
+                bad[k] = (got[k], v)
+        elif got[k] != v:
+            bad[k] = (got[k], v)
+    return bad
+
+
+def counted(fn, launches):
+    """``fn()`` with the launch counts reset just before and added to
+    ``launches`` just after."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    for k, v in ops.LAUNCHES.items():
+        launches[k] += v
+    return out
+
+
+def phase_fabric(dev, card, read_rec):
+    """The remote fabric, the ready-time lock and the tenant metrics. Figs
+    23 and 25 (a remote 4 x 40M array: 8 link bandwidths and 4 RTTs, 7
+    switch roofs, 24 rounds), fig 26 (4 WFQ share rows for 192 rounds, 3
+    starvation rows for 96) and fig 29 (FIFO and WFQ 2:1 x program and
+    ready-time lock, 96 rounds), each graphed at the figure's own
+    settings and flags, against ``FABRIC_REFERENCE``; three rows' final
+    states against the CPU port's. Fig 24 through the remote 4-drive
+    client (n = 4096). ``remote_qos``: graphed against eager with the
+    reference's flags, then with main_path_read's flags (its scans and
+    the four fabric hops' queueing scans on seg_scan) through both
+    runners, timed beside main_path_read, its seg_scan launches a graphed
+    round against a local drive's under the same loop, and its state
+    against the CPU port's. Last ``case_study(remote=True)`` on 1 and 4
+    drives against the same search on the CPU."""
+    import torch
+
+    from repro_torch.apps import vector_search as vs
+    from repro_torch.bench import local_1drive, remote_qos
+    from repro_torch.core import engine
+    from repro_torch.core.types import PlatformModel
+    from repro_torch.kernels import ops
+
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    rows, bad = [], {}
+    t_rows = time.perf_counter()
+    for name, cell in fabric_cells().items():
+        fig = cell["figure"]
+        cfg, ssd, wl = port_cell(cell)
+        t0 = time.perf_counter()
+        out = counted(lambda: engine.simulate(
+            cfg, ssd, wl, rounds=cell["rounds"],
+            num_devices=cell["devices"], device=dev), launches)
+        wall = time.perf_counter() - t0
+        nums = fabric_numbers(fig, out)
+        off = fabric_violations(
+            fig, nums, FABRIC_REFERENCE[fig][name[len(fig) + 1:]], out)
+        rec = {"row": name, **nums, "wall_s_with_capture": wall}
+        if name in FABRIC_CPU_ROWS:
+            rec["card_vs_cpu_violations"] = card_vs_cpu(
+                out, cfg, ssd, wl, cell["rounds"], cell["devices"])
+            if rec["card_vs_cpu_violations"]:
+                off["card_vs_cpu"] = rec["card_vs_cpu_violations"]
+        if off:
+            bad[name] = off
+        rows.append(rec)
+    rows_s = time.perf_counter() - t_rows
+
+    t0 = time.perf_counter()
+    fig24 = counted(lambda: fig24_rows(dev), launches)
+    fig24_s = time.perf_counter() - t0
+    for name, got in fig24.items():
+        off = differing(got, FABRIC_REFERENCE["fig24"][name])
+        if off:
+            bad[f"fig24_{name}"] = off
+
+    # remote_qos with the reference's flags (every scan on the combine
+    # tree), graphed against eager.
+    plat = PlatformModel()
+    cfg, ssd, wl = remote_qos()
+    plain, plain_rec, _ = graphed_run(cfg, ssd, wl, FABRIC_ROUNDS, dev,
+                                      reps=1)
+    plain_diff, plain_eager_ms = eager_vs_graph(plain, cfg, ssd, wl,
+                                                FABRIC_ROUNDS, dev)
+    check(not plain_diff, f"remote_qos: graphed and eager states differ in "
+                          f"{plain_diff}")
+    # ... and with main_path_read's flags, through both runners.
+    cfg_on, _, _ = remote_qos(**READ_FLAGS)
+    on, on_rec = graph_vs_eager(cfg_on, ssd, wl, plat, dev)
+    for k, v in on_rec["launches"].items():
+        launches[k] += v
+    on_vs_cpu = card_vs_cpu(on, cfg_on, ssd, wl, FABRIC_ROUNDS)
+    check(not on_vs_cpu, f"remote_qos on seg_scan: card and CPU differ: "
+                         f"{on_vs_cpu}")
+    local_cfg, _ = local_1drive(**READ_FLAGS)
+    _, local_rec, local_graph = graphed_run(local_cfg, ssd, wl,
+                                            FABRIC_ROUNDS, dev, reps=1)
+    remote_scans = on_rec["launches_per_graph"]["seg_scan"]
+    local_scans = local_graph["seg_scan"]
+    check(remote_scans == local_scans + 4,
+          f"seg_scan launches a graphed round: remote_qos {remote_scans}, "
+          f"the local loop {local_scans} (four hops add four)")
+
+    searches = []
+    scfg = vs.SearchConfig()
+    for nd in (1, 4):
+        t0 = time.perf_counter()
+        got = counted(lambda: vs.case_study(
+            n=VS_N, remote=True, num_devices=nd, device=dev), launches)
+        wall = time.perf_counter() - t0
+        vecs, graph = vs._cached_index(VS_N, scfg.dim, scfg.degree, 0, dev)
+        q = vs.case_queries(64, scfg.dim, 0, dev)
+        vssd, vecfg = vs.case_configs(VS_N, 2.5e6, fabric=vs.REMOTE_FABRIC)
+        cpu = vs.search(q.cpu(), vecs.cpu(), graph.cpu(), scfg, vssd,
+                        ecfg=vecfg, num_devices=nd)
+        diff = search_differences(got, cpu)
+        searches.append({"devices": nd, "n": VS_N, "batch": 64,
+                         "t_max_iops": 2.5e6, **search_numbers(got),
+                         "wall_s_with_capture": wall,
+                         "card_vs_cpu_differing": diff})
+        check(not diff, f"remote search over {nd} drives: card and CPU "
+                        f"differ: {diff}")
+
+    def speed_of(rec):
+        g = rec["graph"]
+        return {k: g[k] for k in ("wall_ms_per_round",
+                                  "emulated_requests_per_wall_s")} | {
+            "device_ms_per_round": g["profiled"]["device_ms_per_round"],
+            "device_events_per_round":
+                g["profiled"]["device_events_per_round"]}
+
+    emit({"phase": "fabric", "card": card, "rows": rows,
+          "rows_s": rows_s, "fig24": fig24, "fig24_s": fig24_s,
+          "remote_qos": {
+              "flags_off": {**plain_rec,
+                            "graph_vs_eager_differing_leaves": plain_diff,
+                            "eager_wall_ms_per_round": plain_eager_ms},
+              "read_flags": {**on_rec, "card_vs_cpu_violations": on_vs_cpu},
+              "local_loop_read_flags": local_rec,
+              "seg_scan_launches_per_graphed_round": {
+                  "remote_qos": remote_scans, "local_loop": local_scans}},
+          "searches": searches, "off_reference": bad,
+          "launches": launches})
+    emit({"remote_qos_vs_main_path_read": {
+        "card": card, "remote_qos": speed_of(on_rec),
+        "main_path_read": speed_of(read_rec)}})
+    check(not bad, f"fabric rows off the reference: {bad}")
+    return launches
+
+
 # -- phases: the serving path -------------------------------------------------
 
 # The reference's kv_tier.decode_tokens_per_s at the serve command's
@@ -2399,6 +2909,18 @@ def phase_serve_tier(dev, card):
     prefill_s, decode_s = out["prefill_s"], out["wall_s"]
     first_row = toks[0].tolist()
     sweep, sweep_bad = tier_cache_sweep(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    mix = tenant_mix(dev)
+    torch.cuda.synchronize()
+    mix_s = time.perf_counter() - t0
+    mix_launches = dict(ops.LAUNCHES)
+    mix_rel = {name: {k: abs(got[k] - v) / v for k, v in
+                      FABRIC_REFERENCE["fig28"][name].items()}
+               for name, got in mix.items()}
+    mix_bad = {name: rel for name, rel in mix_rel.items()
+               if mix[name]["data_check_max_abs"] != 0.0
+               or any(v > TIER_REL_TOL for v in rel.values())}
     del params, tokens, out, toks
     torch.cuda.synchronize()
     left = torch.cuda.memory_allocated(dev) - held
@@ -2409,16 +2931,22 @@ def phase_serve_tier(dev, card):
           "wall_s_total": wall, "launches": launches,
           "reap_run_launches": reap_launches, "reap_run_identical": True,
           "fig28_hot_window_x_cache": sweep,
+          "fig28_tenant_mix": {name: {**mix[name],
+                                      "rel_to_reference": mix_rel[name]}
+                               for name in mix},
+          "fig28_tenant_mix_s": mix_s,
           "allocated_bytes_left_after_phase": left})
     check(not sweep_bad, f"fig 28's cache sweep off the reference: "
                          f"{sweep_bad}")
+    check(not mix_bad, f"fig 28's tenant mix off the reference: {mix_bad}")
     # The phase's weights alone are 6 GB. What may outlive it: the
     # capture stream's cuBLAS workspace (32 MiB, once a process) and the
     # engine's cached device constants (kilobytes).
     check(left <= LEFT_BYTES_BOUND,
           f"serve_tier left {left} bytes allocated on the card")
     torch.cuda.empty_cache()
-    return {k: launches[k] + reap_launches[k] for k in launches}
+    return {k: launches[k] + reap_launches[k] + mix_launches[k]
+            for k in launches}
 
 
 def phase_serve_long(dev, card, batch=8, prompt=4096, gen=128,
@@ -2631,8 +3159,8 @@ def main() -> int:
     phase_cpu_vs_card(dev, card)
     for counts in (phase_vector_search(dev, card), phase_workloads(dev, card),
                    phase_array(dev, card), phase_cache(dev, card),
-                   phase_qp(dev, card), phase_serve_tier(dev, card),
-                   phase_serve_long(dev, card)):
+                   phase_qp(dev, card), phase_fabric(dev, card, read),
+                   phase_serve_tier(dev, card), phase_serve_long(dev, card)):
         for k, v in counts.items():
             launches[k] += v
 

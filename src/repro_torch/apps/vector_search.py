@@ -32,8 +32,9 @@ the drives' state stacked on a leading axis and priced in one pass), and
 the write-back goes to the array as one (M, B*K/M) batch
 (``submit_array``). ``cache_sets > 0`` puts the stage-0 page cache (4
 ways, ``cache_sets`` sets) in front of the vector fetches, on one drive or
-one cache a drive of the array. A remote fabric (``remote``, ROADMAP A12)
-is not ported and raises ``NotImplementedError``.
+one cache a drive of the array. ``remote`` puts every drive behind a
+NIC/link hop each way (``REMOTE_FABRIC`` or a given ``FabricConfig``), so
+the vector fetches and the write-back pay the wire.
 """
 from __future__ import annotations
 
@@ -62,8 +63,7 @@ from repro_torch.core.types import (
     resolve_device,
 )
 
-# Default wire for ``case_study(remote=True)`` (kept for the API; the
-# remote fabric is ROADMAP A12).
+# Default wire for ``case_study(remote=True)``.
 REMOTE_FABRIC = FabricConfig(
     remote=True, rtt_us=10.0, tx_bytes_per_us=8000.0,
     rx_bytes_per_us=8000.0, wire_txn_us=0.2, mtu_batch=8,
@@ -474,8 +474,9 @@ def case_study(
     """One (batch, width, IOPS) cell of the paper's fig 16 study, on
     ``device`` (``cuda`` unless named), over ``num_devices`` drives.
     ``cache_sets > 0`` enables the 4-way page cache of ``cache_sets`` sets
-    in front of the vector fetches (the fig 22 study); ``remote`` (ROADMAP
-    A12) is not ported."""
+    in front of the vector fetches (the fig 22 study); ``remote=True``
+    puts every drive behind ``REMOTE_FABRIC`` (or pass a ``FabricConfig``),
+    the disaggregated array whose QPS follows the link bandwidth."""
     if remote is True:
         fabric = REMOTE_FABRIC
     elif isinstance(remote, FabricConfig):

@@ -11,10 +11,16 @@ DSA datapath) on ``FUTURE_40M`` (40e6 IOPS, 512 instances, 16384 blocks).
 transaction, per-request timing and lock, 32 CPU copy workers) on the
 same drive. ``array_4drive`` is emulator_speed's configuration of that
 name: ``local_1drive``'s drive four times over, an emulated 4-drive array
-in one program.
+in one program. ``remote_qos`` is emulator_speed's third configuration:
+``local_1drive``'s engine with the drive behind a remote fabric (30000
+B/us links each way, 2 us RTT, 0.2 us a wire transaction, MTU batches of
+8 flushed after 5 us, a 60000 B/us switch shared by 4 links, weighted
+fair queueing at 2:1) under a two-tenant loop (``MultiTenant``, depth
+256, a read tenant and a write tenant).
 
     python -m repro_torch.bench [--rounds 24] [--mixed] [--plain] [--baseline]
-                                [--array M] [--cache] [--qp N] [--trace PATH]
+                                [--array M] [--cache] [--qp N] [--remote]
+                                [--trace PATH]
     python -m repro_torch.bench --serve [--steps 16] [--trace PATH]
 
 The first runs the drive read-only with the kernel flags on and profiles
@@ -37,8 +43,9 @@ on ``D7_PS1010`` with the page cache on, 1024 sets x 4 ways, two chased
 hits a slot a round; ``chip_smoke.py``'s ``cache`` phase), and ``--qp N``
 fig 21's row N (``local_1drive`` at depth 1024, a 25 us poll quantum, N
 completions a doorbell with fig 21's doorbell, poll and reap costs, N = 0
-the neutral QP; the ``qp`` phase), both with the kernel flags of the read
-rounds. ``--serve`` profiles the
+the neutral QP; the ``qp`` phase), and ``--remote`` ``remote_qos``'s
+rounds (``chip_smoke.py``'s ``fabric`` phase), each with the kernel
+flags of the read rounds. ``--serve`` profiles the
 serving decode step instead: starcoder2-3b at full width with the
 attention kernels on, batch 8 after a 4096-token prompt
 (``chip_smoke.py``'s ``serve_long``),
@@ -121,6 +128,23 @@ def fig21_row(n_coal: int, **kw):
           if n_coal else QPConfig())
     cfg, ssd = local_1drive(poll_quantum_us=25.0, qp=qp, **kw)
     return cfg, ssd, WorkloadConfig(io_depth=1024)
+
+
+def remote_qos(**kw):
+    """(EngineConfig, SSDConfig, workload) of ``remote_qos``
+    (``benchmarks/emulator_speed.py``); ``kw`` overrides EngineConfig
+    fields."""
+    from repro_torch.core.types import FabricConfig
+    from repro_torch.workloads import MultiTenant
+
+    fab = FabricConfig(
+        remote=True, tx_bytes_per_us=30_000.0, rx_bytes_per_us=30_000.0,
+        rtt_us=2.0, wire_txn_us=0.2, mtu_batch=8, mtu_timeout_us=5.0,
+        switch_bytes_per_us=60_000.0, switch_fanin=4,
+        qos_weights=(2.0, 1.0),
+    )
+    cfg, ssd = local_1drive(fabric=fab, **kw)
+    return cfg, ssd, MultiTenant(io_depth=256, tenant_read_frac=(1.0, 0.0))
 
 
 def array_4drive(**kw):
@@ -206,7 +230,7 @@ def profiled(fn, n: int, trace: "str | None" = None) -> dict:
 def profile_rounds(rounds: int, trace: "str | None", mixed: bool = False,
                    plain: bool = False, baseline: bool = False,
                    num_devices: int = 1, cache: bool = False,
-                   qp: "int | None" = None) -> dict:
+                   qp: "int | None" = None, remote: bool = False) -> dict:
     from repro_torch.core import engine
     from repro_torch.core.types import PlatformModel, WorkloadConfig
     from repro_torch.workloads import MixedReadWrite
@@ -222,6 +246,8 @@ def profile_rounds(rounds: int, trace: "str | None", mixed: bool = False,
         cfg, ssd, wl = fig22_1024(**flags)
     elif qp is not None:
         cfg, ssd, wl = fig21_row(qp, **flags)
+    elif remote:
+        cfg, ssd, wl = remote_qos(**flags)
     else:
         cfg, ssd = local_1drive(emulate_data=True,
                                 use_pallas_flash=mixed and on, **flags)
@@ -249,6 +275,8 @@ def profile_rounds(rounds: int, trace: "str | None", mixed: bool = False,
         path = "fig 22's 1024-set cached Zipf rounds"
     elif qp is not None:
         path = f"fig 21's rounds at {qp} completions a doorbell"
+    elif remote:
+        path = "remote_qos rounds"
     if num_devices > 1:
         path = f"{num_devices}-drive array, " + path
     return {"path": path + (", kernels off" if plain else ""),
@@ -313,17 +341,21 @@ def main() -> None:
     ap.add_argument("--qp", type=int, default=None, metavar="N",
                     help="profile fig 21's rounds at N completions a "
                          "doorbell (0: the neutral QP)")
+    ap.add_argument("--remote", action="store_true",
+                    help="profile remote_qos's rounds (remote fabric, "
+                         "two tenants)")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace here")
     args = ap.parse_args()
-    # --cache and --qp bring their own drive and workload: they take no
-    # other rounds' option, so the label names the rounds profiled.
+    # --cache, --qp and --remote bring their own drive and workload: they
+    # take no other rounds' option, so the label names the rounds profiled.
     own = [f for f, on in (("--cache", args.cache),
                            ("--qp", args.qp is not None),
+                           ("--remote", args.remote),
                            ("--mixed", args.mixed),
                            ("--baseline", args.baseline)) if on]
-    if (args.cache or args.qp is not None) and len(own) > 1:
+    if (args.cache or args.qp is not None or args.remote) and len(own) > 1:
         ap.error(" and ".join(own) + " do not combine")
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.bench needs a CUDA device")
@@ -331,7 +363,8 @@ def main() -> None:
         res = profile_decode(args.steps, args.trace)
     else:
         res = profile_rounds(args.rounds, args.trace, args.mixed, args.plain,
-                             args.baseline, args.array, args.cache, args.qp)
+                             args.baseline, args.array, args.cache, args.qp,
+                             args.remote)
     print(json.dumps(res), flush=True)
 
 

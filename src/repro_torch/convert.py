@@ -7,7 +7,9 @@ names of the two packages' dataclasses are the same, so the paths are
 too). Dtypes and shapes pass through unchanged: float32, int32 and bool,
 and an M-drive array's leading ``(M,)`` axis on every leaf. The optional
 page cache (``cache.tags``, ``cache.rr``) travels when it is there and is
-``None`` when its leaves are not. Engine states
+``None`` when its leaves are not; a remote drive's fabric cursors
+(``device.fabric.*``, one per tenant class) and the per-tenant metrics
+travel as every other leaf does. Engine states
 (``EngineState``) and client states (``ClientState``) go both ways. Model
 parameters are exchanged as the reference's own nested tree of dicts and
 tuples with numpy leaves (``model_params_from_numpy``).

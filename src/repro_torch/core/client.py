@@ -22,12 +22,14 @@ Everything else is a thin wrapper:
 With ``cfg.cache.enabled`` the state carries the stage-0 page cache
 (``core/cache.py``; an array's stacked, one a drive): read hits complete
 at ``hit_us`` and never post an SQE, and every valid op fills the cache
-(write-allocate). The remote fabric waits for ROADMAP A12 (the pipeline
-rejects ``fabric.remote`` when it is built).
+(write-allocate). With ``cfg.fabric.remote`` every drive sits behind
+its own TX/RX link (and the shared switch port, if it has a finite roof),
+priced inside ``DevicePipeline.process``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -422,11 +424,14 @@ class StorageClient:
         """Replica reads over an M-drive array, least-loaded routing.
         Block b's R replicas live on drives ``(b + r) % M`` (chained
         declustering); each read goes, in request order, to the candidate
-        with the least load: the drive's mean instance backlog plus one
-        service slot (``1e6 / t_max_iops`` us) per read already routed to
-        it in this batch (the first such candidate on a tie). The drives
-        are local, so no fabric cursor adds to the load. Returns (state',
-        data, done) in request order."""
+        with the least load: the drive's mean instance backlog, plus on a
+        remote array its RX link cursor (and its shared-switch RX cursor
+        when the switch has a finite roof), plus the estimated time of
+        the reads already routed to it in this batch (the first such
+        candidate on a tie). A read's estimate is one service slot
+        (``1e6 / t_max_iops`` us), plus on a remote array the amortized
+        wire transaction and the frame's bytes at the RX link and switch
+        share. Returns (state', data, done) in request order."""
         m = _num_drives(state)
         if not 1 <= replicas <= m:
             raise ValueError(
@@ -440,9 +445,21 @@ class StorageClient:
             valid = torch.ones((n,), dtype=torch.bool, device=device)
         t_submit = _fan(t_submit, (n,), F32, device)
 
+        fab = self.cfg.fabric
         load = lane_mean(state.dev.tstate.busy_until)
-        est = torch.full((1,), float(np.float32(1e6 / self.ssd.t_max_iops)),
-                         dtype=F32, device=device)
+        est = 1e6 / self.ssd.t_max_iops
+        if fab.remote:
+            # The link frontier is the latest per-tenant cursor.
+            load = load + torch.amax(state.dev.fabric.rx_busy, dim=-1)
+            est += fab.wire_txn_us / fab.mtu_batch
+            frame = fab.cqe_bytes + self.ssd.block_bytes
+            if math.isfinite(fab.rx_bytes_per_us):
+                est += frame / fab.rx_bytes_per_us
+            if fab.switched:
+                load = load + torch.amax(state.dev.fabric.switch_rx, dim=-1)
+                est += frame / fab.switch_share_bytes_per_us
+        est = torch.full((1,), float(np.float32(est)), dtype=F32,
+                         device=device)
         cand = torch.remainder(
             lba[:, None] + torch.arange(replicas, dtype=I32, device=device),
             m)                                               # (N, R)

@@ -10,13 +10,19 @@
               neutral or coalescing
 
 (Stage 0, the page cache, sits in front of the rings: ``core/cache.py``,
-driven by the engine and the client.) The port has the local-drive branch
-in program lock order, under both timing modes (aggregated and the
-per-request baseline) and both frontends (distributed and the centralized
-baseline). The branches it does not have yet (the local timing scope,
-A3; the ready-time lock order, A4; the remote fabric, A12; the
-sanitizer, A9) are rejected when the pipeline is built — never at run
-time — each with the ROADMAP item that will bring it.
+driven by the engine and the client.) A remote drive
+(``EngineConfig.fabric.remote``) wraps the target-side stages in two
+fabric hops (``core/fabric.py``): stage 1.5 sends the fetched SQEs and
+write payloads through the shared switch port (when it has a finite
+roof) and the drive's TX link, and stage 4.5 returns completions and
+read payloads over the RX link and back through the switch, before the
+CQ. ``EngineConfig.lock_order`` picks how service units take the global
+timing lock: in unit index order (``"program"``) or in the order their
+batches became ready (``"ready_time"``), whole unit blocks then entering
+the timing model in that order. The port has both timing modes and both
+frontends. The branches it does not have yet (the local timing scope,
+A3; the sanitizer, A9) are rejected when the pipeline is built — never
+at run time — each with the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
@@ -28,7 +34,10 @@ import torch
 
 from repro_torch.cuda_graph import map_leaves
 from repro_torch.core import datapath, qp, segops, timing
-from repro_torch.core.epoch import Epoch
+from repro_torch.core import fabric as fabric_mod
+from repro_torch.core.epoch import (
+    Epoch, admission_row_order, unit_ready_order,
+)
 from repro_torch.core.fabric import FabricState
 from repro_torch.core.flash import FlashState, flash_stage
 from repro_torch.core.qp import CQRings
@@ -95,14 +104,21 @@ def acquire_lock(
     num_units: int,
     cfg: EngineConfig,
     plat: PlatformModel,
-) -> Tuple[torch.Tensor, torch.Tensor, None]:
-    """Serialize service units on the global timing-model lock, in unit
-    index (program) order: ``done_u = max(t, ready_u) + cost_u``, folded
-    unit by unit exactly as the reference's sequential scan. The cost is
-    per request (the per-request baseline: every request takes the lock)
-    or per batch (aggregated mode); an array's drives each hold their own
-    lock (``lock_time`` (M,)). Returns ``(lock_time', lock_done (U,),
-    None)`` — no acquisition permutation in program order."""
+) -> Tuple[torch.Tensor, torch.Tensor, "torch.Tensor | None"]:
+    """Serialize service units on the global timing-model lock:
+    ``done_u = max(t, ready_u) + cost_u``, folded unit by unit exactly as
+    the reference's sequential scan. The cost is per request (the
+    per-request baseline: every request takes the lock) or per batch
+    (aggregated mode); an array's drives each hold their own lock
+    (``lock_time`` (M,)). Returns ``(lock_time', lock_done (U,),
+    unit_order)``.
+
+    ``lock_order="program"`` folds the units in index order
+    (``unit_order`` is None). ``"ready_time"`` folds them in order of
+    their batch ready time (ties by index), each drive its own order:
+    ready times and costs are gathered through the (..., U) permutation,
+    the grants scatter back to unit order, and the permutation is
+    returned so that the timing model dispatches in the same order."""
     n_valid_u = epoch.unit_counts(num_units)
     batch_ready = epoch.unit_ready(num_units)
     if cfg.mode == "per_request":
@@ -111,12 +127,20 @@ def acquire_lock(
         cost = torch.where(
             n_valid_u > 0, float(np.float32(plat.lock_per_batch_us)), 0.0
         )
+    unit_order = None
+    if cfg.lock_order == "ready_time":
+        unit_order = unit_ready_order(batch_ready)
+        o = unit_order.long()
+        batch_ready, cost = segops.take(batch_ready, o), segops.take(cost, o)
     t = lock_time
     grants = []
     for u in range(num_units):
         t = torch.maximum(t, batch_ready[..., u]) + cost[..., u]
         grants.append(t)
-    return t, torch.stack(grants, dim=-1), None
+    granted = torch.stack(grants, dim=-1)
+    if unit_order is not None:
+        granted = segops.unsort(granted, unit_order)
+    return t, granted, unit_order
 
 
 def init_array_state(init_fn: Callable[[int], object], num_devices: int):
@@ -137,8 +161,6 @@ def init_array_state(init_fn: Callable[[int], object], num_devices: int):
 
 _UNPORTED = (
     (lambda c: c.timing_scope == "local", "timing_scope='local'", "A3"),
-    (lambda c: c.lock_order == "ready_time", "lock_order='ready_time'", "A4"),
-    (lambda c: c.fabric.remote, "fabric.remote", "A12"),
     (lambda c: c.sanitize, "sanitize=True", "A9"),
 )
 
@@ -194,9 +216,11 @@ class DevicePipeline:
         axis on every leaf (``unit`` may stay (N,), shared by the drives);
         each drive is priced as a call on its own would price it."""
         cfg, ssd, plat = self.cfg, self.ssd, self.plat
+        fab = cfg.fabric
         u = state.num_units
         valid = batch.valid
         unit = unit.expand(valid.shape)
+        tenant = batch.tenants if fab.num_tenants > 1 else None
 
         compact = cfg.use_compaction
         blocky = compact and ring_layout
@@ -214,22 +238,47 @@ class DevicePipeline:
             )
             cq_counts = None
 
-        # -- stage 2a: global timing-model lock over the admission epoch.
+        # -- stage 1.5: fabric TX hop (remote drives only): the shared
+        # switch port first (fan-out), then this drive's own link.
+        links = state.fabric
+        fab_tx, fab_rx = links.tx_busy, links.rx_busy
+        sw_tx, sw_rx = links.switch_tx, links.switch_rx
+        if fab.remote:
+            tx_bytes = fabric_mod.tx_wire_bytes(batch, plat.sqe_bytes, ssd)
+            if fab.switched:
+                sw_tx, fetch_done = fabric_mod.switch_hop(
+                    sw_tx, fetch_done, tx_bytes, valid, fab, tenant,
+                    use_pallas=pallas,
+                )
+            fab_tx, fetch_done = fabric_mod.fabric_hop(
+                fab_tx, fetch_done, tx_bytes, valid, fab,
+                fab.tx_bytes_per_us, tenant, use_pallas=pallas,
+            )
+
+        # -- stage 2a: global timing-model lock over the admission epoch;
+        # the post-TX fetch times are its ready times.
         epoch = Epoch.from_batch(
             batch, fetch_done, unit, "ring" if ring_layout else "direct"
         )
         n_valid_u = epoch.unit_counts(u)
-        lock_time, lock_done, _ = acquire_lock(
+        lock_time, lock_done, unit_order = acquire_lock(
             state.lock_time, epoch, u, cfg, plat
         )
         disp_time = torch.maximum(state.disp_time, lock_done)
         epoch = epoch.admit(lock_done)
         arrival = epoch.arrival
 
-        # -- stage 2b: target completion times.
+        # -- stage 2b: target completion times, dispatched in lock
+        # acquisition order under the ready-time lock (a row permutation:
+        # data movement only).
         tbatch = dataclasses.replace(batch, arrival=arrival)
+        dispatch_order = (
+            admission_row_order(unit_order, epoch, u)
+            if unit_order is not None else None
+        )
         tstate, target = timing.update(
             state.tstate, tbatch, ssd, cfg.mode, use_compaction=compact,
+            dispatch_order=dispatch_order,
         )
 
         # -- stage 3: backend data transfer.
@@ -273,18 +322,38 @@ class DevicePipeline:
             valid, torch.maximum(torch.maximum(target, ready), flash_done),
             0.0,
         )
+
+        # -- stage 4.5: fabric RX hop: this drive's link, then the shared
+        # switch port all return streams converge on (incast).
+        if fab.remote:
+            rx_bytes = fabric_mod.rx_wire_bytes(batch, fab, ssd)
+            fab_rx, wire_done = fabric_mod.fabric_hop(
+                fab_rx, done, rx_bytes, valid, fab, fab.rx_bytes_per_us,
+                tenant, use_pallas=pallas,
+            )
+            if fab.switched:
+                sw_rx, wire_done = fabric_mod.switch_hop(
+                    sw_rx, wire_done, rx_bytes, valid, fab, tenant,
+                    use_pallas=pallas,
+                )
+            wire_done = torch.where(valid, wire_done, 0.0)
+        else:
+            wire_done = done
+
         new_state = DeviceState(
             tstate=tstate, disp_time=disp_time, work_time=work_time,
             dsa_time=dsa_time, lock_time=lock_time, map_time=map_time,
-            flash=fstate, fabric=state.fabric,
+            flash=fstate,
+            fabric=FabricState(tx_busy=fab_tx, rx_busy=fab_rx,
+                               switch_tx=sw_tx, switch_rx=sw_rx),
         )
 
         # -- stage 5: post to the CQ and reap (queue-pair layer).
         if cq is None:
-            reaped = done
+            reaped = wire_done
         else:
             cq, reaped = qp.post_and_reap(
-                cq, batch.sq_id, done, batch.req_id, valid, cfg.qp,
+                cq, batch.sq_id, wire_done, batch.req_id, valid, cfg.qp,
                 posted_rank=cq_rank, use_pallas=pallas, posted_counts=cq_counts,
                 fused_scatter=compact, use_pallas_reap=cfg.use_pallas_reap,
             )

@@ -54,6 +54,7 @@ from repro_torch.core.types import (
     WorkloadConfig,
     resolve_device,
 )
+from repro_torch.core.xla_math import lane_sum
 from repro_torch.workloads import Workload, as_workload
 
 FAR = 3e38
@@ -128,13 +129,17 @@ def _percentiles_on(device: torch.device) -> torch.Tensor:
     return bits.view(F32).to(device)
 
 
+def _row_percentile(h: torch.Tensor, q: float) -> torch.Tensor:
+    """``hist_percentile`` of each row of a (..., HIST_BUCKETS) table."""
+    c = torch.cumsum(h, -1, dtype=F32)
+    idx = torch.argmax((c >= q * c[..., -1:]).to(I32), dim=-1)
+    return _percentiles_on(h.device)[idx]
+
+
 def hist_percentile(hist: torch.Tensor, q: float) -> torch.Tensor:
     """Approximate latency percentile: the geometric midpoint of the first
     bucket where the CDF reaches ``q``."""
-    h = hist.reshape(-1, HIST_BUCKETS).sum(dim=0)
-    c = torch.cumsum(h, 0, dtype=F32)
-    idx = torch.argmax((c >= q * c[-1]).to(I32))
-    return _percentiles_on(hist.device)[idx]
+    return _row_percentile(hist.reshape(-1, HIST_BUCKETS).sum(dim=0), q)
 
 
 def _sum(vals: torch.Tensor) -> torch.Tensor:
@@ -200,6 +205,49 @@ class Metrics:
     def hit_rate(self) -> torch.Tensor:
         """Fraction of completed requests served by the stage-0 cache."""
         return self.cache_hits / torch.clamp(self.completed, min=1.0)
+
+    def _pooled(self, x: torch.Tensor) -> torch.Tensor:
+        """(T,) per-tenant counts with any leading drive axes summed
+        away (integer-valued, exact in any order)."""
+        return x.reshape(-1, x.shape[-1]).sum(dim=0)
+
+    def tenant_share(self) -> torch.Tensor:
+        """(T,) fraction of device completions per tenant; an array's
+        drives are summed first."""
+        c = self._pooled(self.tenant_completed)
+        return c / torch.clamp(torch.sum(c), min=1.0)
+
+    def tenant_avg_e2e_us(self) -> torch.Tensor:
+        """(T,) mean consumer-observed latency per tenant. An array's
+        per-drive sums add in the reference's compiled order
+        (``xla_math.lane_sum`` over the drive axis)."""
+        t = self.tenant_sum_e2e.shape[-1]
+        s = lane_sum(self.tenant_sum_e2e.reshape(-1, t).T)
+        return s / torch.clamp(self._pooled(self.tenant_completed), min=1.0)
+
+    def _pooled_tenant_hist(self) -> torch.Tensor:
+        """(T, HIST_BUCKETS) with any leading drive axes summed away."""
+        t = self.tenant_completed.shape[-1]
+        return self.tenant_lat_hist.reshape(-1, t, HIST_BUCKETS).sum(dim=0)
+
+    def tenant_p99_us(self) -> torch.Tensor:
+        """(T,) per-tenant p99 E2E latency (device completions only)."""
+        return _row_percentile(self._pooled_tenant_hist(), 0.99)
+
+    def tenant_p50_us(self) -> torch.Tensor:
+        """(T,) per-tenant median E2E latency (device completions only)."""
+        return _row_percentile(self._pooled_tenant_hist(), 0.50)
+
+    def slo_attainment(self, slo_us: float) -> torch.Tensor:
+        """(T,) fraction of each tenant's device completions whose bucket's
+        lower edge is at or under ``slo_us`` (an empty tenant reports
+        1.0). The bucket of ``slo_us`` is the compiled reference's
+        (``latency_bucket``'s edges)."""
+        h = self._pooled_tenant_hist()
+        ok = torch.arange(HIST_BUCKETS, device=h.device) <= _bucket_of(slo_us)
+        met = torch.sum(torch.where(ok, h, 0.0), dim=-1)
+        tot = torch.sum(h, dim=-1)
+        return torch.where(tot > 0, met / torch.clamp(tot, min=1.0), 1.0)
 
     def p50_us(self) -> torch.Tensor:
         return hist_percentile(self.lat_hist, 0.50)

@@ -8,6 +8,12 @@ of ``frontend._gather_entries`` (units are contiguous ``N // U`` slabs),
 which turns per-unit reductions into reshapes; ``"direct"`` uses
 segmented forms on the non-decreasing ``unit`` key. Every tensor may
 carry a leading ``(M,)`` drive axis (an array's epochs, one a drive).
+
+``unit_ready_order`` and ``admission_row_order`` build the ready-time
+lock's acquisition permutation from ``(ready, unit)`` keys with a stable
+sort, so ties keep program order. The permutation moves whole unit
+blocks and no float arithmetic: gathering rows through it cannot
+perturb a float.
 """
 from __future__ import annotations
 
@@ -15,7 +21,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.segops import segment_max, segment_sum, take
+from repro_torch.core.segops import (
+    segment_max, segment_sum, stable_argsort, take, unsort,
+)
 from repro_torch.core.types import I32, RequestBatch
 
 
@@ -45,8 +53,16 @@ class Epoch:
         )
 
     @property
+    def capacity(self) -> int:
+        return self.ready.shape[-1]
+
+    @property
     def is_ring(self) -> bool:
         return self.layout == "ring"
+
+    def rows_per_unit(self, num_units: int) -> int:
+        """Fixed block width of the ring layout's unit slabs."""
+        return self.capacity // num_units
 
     def unit_counts(self, num_units: int) -> torch.Tensor:
         """(U,) valid-request count per unit (exact integer reduction)."""
@@ -75,3 +91,31 @@ class Epoch:
             self,
             arrival=torch.maximum(self.ready, take(lock_done, self.unit)),
         )
+
+
+def unit_ready_order(batch_ready: torch.Tensor) -> torch.Tensor:
+    """(..., U) lock-acquisition permutation: units by ``(ready, index)``,
+    per drive. Stable, so equal ready times keep program order: with
+    monotone ready times it is the identity."""
+    return stable_argsort(batch_ready)
+
+
+def admission_row_order(
+    unit_order: torch.Tensor,  # (..., U) i32 acquisition order
+    epoch: Epoch,
+    num_units: int,
+) -> torch.Tensor:
+    """(..., N) row permutation dispatching unit blocks in lock order:
+    position j holds the j-th row dispatched, rows inside a block in
+    program order. Index arithmetic on the ring layout's fixed-width
+    slabs; a stable argsort of each row's acquisition position
+    otherwise."""
+    if epoch.is_ring:
+        w = epoch.rows_per_unit(num_units)
+        rows = torch.arange(w, dtype=I32, device=unit_order.device)
+        perm = unit_order[..., :, None] * w + rows
+        return perm.reshape(tuple(unit_order.shape[:-1]) + (-1,)).to(I32)
+    pos = torch.arange(num_units, dtype=I32, device=unit_order.device)
+    lock_pos = unsort(pos.expand(unit_order.shape).contiguous(), unit_order)
+    unit = epoch.unit.expand(epoch.valid.shape)
+    return stable_argsort(take(lock_pos, unit))

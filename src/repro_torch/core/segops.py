@@ -486,6 +486,7 @@ def queueing_scan_via_segmax(
     heads: torch.Tensor,
     seed: torch.Tensor,
     segmax_fn=segmented_prefix_max,
+    seq_sum: bool = False,
 ) -> torch.Tensor:
     """``queueing_scan`` reduced to one segmented prefix max:
     ``busy_j = S_j + max_{i <= j, same segment} (a_i - S_i)`` with
@@ -494,9 +495,14 @@ def queueing_scan_via_segmax(
     accumulated in double and rounded once a row: for the engine's costs
     every double partial sum is exact, so the card (whose float32 cumsum
     is a tree) gives the CPU's numbers (whose float32 cumsum accumulates
-    in double)."""
+    in double). ``seq_sum=True`` adds fractional costs in float32 in
+    ``jnp.cumsum``'s order instead (``seq_cumsum``), as the reference's
+    compiled route does."""
     a = _seeded(ready, cost, heads, seed)
-    s = torch.cumsum(cost.to(torch.float64), -1).to(F32)
+    if seq_sum:
+        s = seq_cumsum(cost, -1)
+    else:
+        s = torch.cumsum(cost.to(torch.float64), -1).to(F32)
     return s + segmax_fn(a - s, heads)
 
 
@@ -507,20 +513,30 @@ def _kernel_segmax(values: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
     return kops.seg_scan(values.contiguous(), heads.contiguous())
 
 
+def _queueing_combine(left, right):
+    fl, al, cl = left
+    fr, ar, cr = right
+    a_ = torch.where(fr, ar, torch.maximum(ar, al + cr))
+    c_ = torch.where(fr, cr, cl + cr)
+    return [fl | fr, a_, c_]
+
+
 def queueing_scan(
     ready: torch.Tensor,
     cost: torch.Tensor,
     heads: torch.Tensor,
     seed: torch.Tensor,
     use_pallas: bool = False,
+    seq_sum: bool = False,
 ) -> torch.Tensor:
     """Exact single-server queueing recurrence, vectorized per segment:
     ``busy_j = max(ready_j, busy_{j-1}) + cost_j`` with ``busy_{-1} = seed``
     at each head, as a (max,+) function-composition scan.
 
     ``use_pallas=True`` (``EngineConfig.use_pallas_segscan``) routes the
-    core through the ``seg_scan`` kernel via ``queueing_scan_via_segmax``;
-    otherwise the scan runs on JAX's combine tree (``associative_scan``).
+    core through the ``seg_scan`` kernel via ``queueing_scan_via_segmax``
+    (``seq_sum`` picks its cumulative sum there); otherwise the scan runs
+    on JAX's combine tree (``associative_scan``).
     The combine keeps one ``torch.maximum``: a zero's sign never changes
     a magnitude downstream (``x + ±0`` and ``max(x, ±0)`` differ only when
     the result is zero), and the interleave turns every -0 of the output
@@ -529,15 +545,8 @@ def queueing_scan(
     """
     if use_pallas:
         return queueing_scan_via_segmax(
-            ready, cost, heads, seed, segmax_fn=_kernel_segmax
+            ready, cost, heads, seed, segmax_fn=_kernel_segmax,
+            seq_sum=seq_sum,
         )
     a = _seeded(ready, cost, heads, seed)
-
-    def combine(left, right):
-        fl, al, cl = left
-        fr, ar, cr = right
-        a_ = torch.where(fr, ar, torch.maximum(ar, al + cr))
-        c_ = torch.where(fr, cr, cl + cr)
-        return [fl | fr, a_, c_]
-
-    return associative_scan(combine, [heads, a, cost])[1]
+    return associative_scan(_queueing_combine, [heads, a, cost])[1]

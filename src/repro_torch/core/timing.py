@@ -20,9 +20,11 @@ through the closed form
     start_j = b_j + j*Sched,   busy'[k] = b_last + m_k*Sched
 
 where j is the within-instance rank inside the batch. Eager PyTorch
-rounds every multiply and add on its own (no FMA contraction), on the CPU
-and on the card alike. Every update takes one drive's state and batch or
-an array's, with a leading ``(M,)`` axis on every tensor.
+rounds every multiply and add on its own, on the CPU and on the card
+alike; the three products the compiled reference fuses with their add
+(see ``_sorted_batch_core``) go through ``xla_math._fma32`` instead.
+Every update takes one drive's state and batch or an array's, with a
+leading ``(M,)`` axis on every tensor.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from repro_torch.core.segops import (
 from repro_torch.core.types import (
     F32, I32, RequestBatch, SSDConfig, TimingState,
 )
+from repro_torch.core.xla_math import _fma32
 
 
 def f32(x: float) -> float:
@@ -125,7 +128,18 @@ def _sorted_batch_core(
     ssd: SSDConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (max,+) closed form on an instance-major layout, shared by the
-    stable-sort and the compacted layouts (one expression tree)."""
+    stable-sort and the compacted layouts (one expression tree).
+
+    The compiled reference contracts each of the three products with
+    the add that consumes it into one fused multiply-add:
+    ``s_arr - rank*sched``, ``b + rank*sched`` and
+    ``last_b + seg_counts*sched``. That holds on every path that reaches
+    the core (the stable sort, the compaction, both vmapped over an
+    array's drives, and the engine round and the client's submit that
+    call them); inputs that make a fused and an unfused rounding differ,
+    run through ``jax.jit``, pin each one. The three are computed here
+    with ``_fma32``, rounded once on the CPU and the card alike; every
+    other operation rounds on its own, as in the reference."""
     k = ssd.n_instances
     sched = f32(ssd.sched_us)
     lmin = f32(ssd.l_min_us)
@@ -133,19 +147,22 @@ def _sorted_batch_core(
     safe_inst = torch.clamp(s_inst, 0, k - 1)
     seed = take(busy_init, safe_inst)
     rank_f = rank.to(F32)
-    a = s_arr - rank_f * sched
+    sched_t = torch.full_like(s_arr, sched)
+    a = _fma32(-rank_f, sched_t, s_arr)
     a = torch.where(head, torch.maximum(a, seed), a)
     a = torch.where(s_valid, a, NEG)
     b = segmented_prefix_max(a, head)
 
-    start = b + rank_f * sched
+    start = _fma32(rank_f, sched_t, b)
     comp_sorted = torch.maximum(start + sched, s_arr + lmin)
     comp_sorted = torch.where(s_valid, comp_sorted, 0.0)
 
     seg_counts = segment_sum(s_valid.to(F32), safe_inst, k)
     last_b = segment_max(torch.where(s_valid, b, NEG), safe_inst, k)
     new_busy = torch.where(
-        seg_counts > 0, last_b + seg_counts * sched, busy_init
+        seg_counts > 0,
+        _fma32(seg_counts, torch.full_like(seg_counts, sched), last_b),
+        busy_init,
     )
     return unsort(comp_sorted, order), new_busy
 

@@ -7,8 +7,8 @@ client state with mixed valid masks, scalar and per-request submission
 clocks and tenants, and compare the completion times, the gathered
 blocks, the block store and every leaf of the device state. Integer and
 bool leaves and every block must be equal; virtual times are held to
-``TIME_ULP`` (ROADMAP §C: the reference's compiled timing core may
-contract a multiply-add). No batch writes one LBA twice (the reference
+``TIME_ULP``, 0: the port's timing core fuses the multiply-adds the
+reference's compiled one fuses. No batch writes one LBA twice (the reference
 leaves that case unspecified).
 """
 import dataclasses
@@ -25,7 +25,7 @@ from repro_torch.convert import ulp_distance
 from repro_torch.core import types as tt
 from repro_torch.core.client import StorageClient as TClient
 
-TIME_ULP = 1
+TIME_ULP = 0
 CONFIGS = {
     # the vector-search client on fig 16's two drives, n = 1024
     "search_2.5M": (dict(t_max_iops=2.5e6, l_min_us=50.0, n_instances=64,

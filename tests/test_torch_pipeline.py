@@ -105,12 +105,11 @@ def pair(x):
 ])
 @pytest.mark.parametrize("compact", [False, True])
 def test_timing_update(ssd_kw, integer, compact):
-    """1024 rows, up to 16 per scheduling instance. Exact on the integer
-    drive. On the fractional ones (FUTURE_40M's 12.8 us, the stock
-    25.9 us) the compiled reference may contract ``rank*sched`` and
-    ``count*sched`` with the following add into an FMA, while the port
-    rounds the multiply and the add apart: 1 ULP on completions and busy
-    cursors."""
+    """1024 rows, up to 16 per scheduling instance, exact on every drive.
+    On the fractional ones (FUTURE_40M's 12.8 us, the stock 25.9 us) the
+    compiled reference contracts ``rank*sched`` and ``count*sched`` with
+    the add that follows into a fused multiply-add, and so does the
+    port."""
     rng = np.random.default_rng(len(ssd_kw) + compact)
     fields = make_batch(rng, 16, 64, integer=integer)
     jb, tb = batches(fields)
@@ -123,8 +122,7 @@ def test_timing_update(ssd_kw, integer, compact):
     ref = jax.jit(lambda s, b: jti.update(s, b, jssd,
                                           use_compaction=compact))(js, jb)
     out = tti.update(tsn, tb, tssd, use_compaction=compact)
-    ulp = 0 if integer else 1
-    agree(ref, out, **{"0.busy_until": ulp, "1": ulp})
+    agree(ref, out)
 
 
 def test_timing_dispatch_order_permutes_rows():

@@ -4,8 +4,9 @@ SSD-backed KV tier and the serving loop.
 
 Integer bookkeeping (ring slots, page tables, block counts) must match
 exactly, and so must the block store and every gathered byte. Virtual
-times carry the ULP bound of ROADMAP §C (1 ULP); the tier's aggregate
-timing stats must agree within 1e-6 relative.
+times are held to ``TIME_ULP``, 0 since the port's timing core fuses the
+reference's compiled multiply-adds; the tier's aggregate timing stats
+must agree within 1e-6 relative.
 """
 import dataclasses
 
@@ -33,7 +34,7 @@ from repro_torch.serving import paged_kv as pk
 
 SSD = dict(t_max_iops=1e6, l_min_us=20.0, n_instances=32, num_blocks=1 << 12)
 ECFG = dict(num_units=4, fetch_width=64)
-TIME_ULP = 1   # ROADMAP §C: the timing core's contracted multiply-add
+TIME_ULP = 0   # completion times (the timing core fuses as XLA does)
 
 
 def t(x):

@@ -8,11 +8,11 @@ IOPS, with and without ``write_back``: ``indices`` and ``recall`` equal;
 ``distances`` bit-exact (``DIST_ULP``: the port sums the 128 lanes in
 XLA's CPU order); ``virtual_us``, ``writeback_us`` and ``qps`` within
 ``TIME_ULP`` float32 units of the reference's and ``avg_iter_us`` within
-``AVG_ULP``. Fifteen of the sixteen cells are bit-exact; at batch 16,
-width 4, 2.5e6 IOPS the reference's compiled scan puts one iteration's
-completion time an ULP off (its timing core contracts a multiply-add
-when several reads share a flash instance, ROADMAP §C), which moves the
-clock 1 ULP and the mean 2. The reference's client ``submit`` is
+``AVG_ULP``, both 0: all sixteen cells are bit-exact, since the port's
+timing core fuses the multiply-adds that the reference's compiled one
+fuses (at batch 16, width 4, 2.5e6 IOPS, where several reads share a
+flash instance, it was 1 ULP off before). The reference's client
+``submit`` is
 compiled, as the engine compiles it (its eager first call costs half a
 minute).
 """
@@ -34,8 +34,8 @@ from repro_torch.core import xla_math
 
 N = 1024
 DIST_ULP = 0
-TIME_ULP = 1      # virtual_us, writeback_us, qps
-AVG_ULP = 2       # avg_iter_us, the mean of 24 such step times
+TIME_ULP = 0      # virtual_us, writeback_us, qps
+AVG_ULP = 0       # avg_iter_us, the mean of 24 such step times
 # The reference's own case_study(n=1024, batch=64, width=4) numbers.
 REFERENCE_CASE = {
     2.5e6: dict(virtual_us=30096.02734375, qps=2126.526510260192,
@@ -256,8 +256,6 @@ def test_merge_top_matches_reference():
 def test_unported_options_raise():
     with pytest.raises(ValueError, match="divisible by num_devices=3"):
         tvs.case_study(n=64, batch=4, num_devices=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        tvs.case_study(n=64, batch=4, remote=True, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         convert.search_inputs_from_numpy(np.zeros((4, 8)), np.zeros(
             (4, 2), np.int32), np.zeros((1, 8), np.float32), "cpu")

@@ -6,10 +6,10 @@ Addresses, opcodes, tenants and validity are integers and must be equal.
 The Zipf address and the Poisson gap are float32 draws that the port
 computes with ``core.xla_math``, which reproduces XLA's CPU ``powf`` and
 ``log`` bit for bit. In whole runs every integer and bool leaf is equal;
-the time leaves are bit-exact but where the reference's compiled timing
-model contracts a multiply-add (``TIME_ULP``, the Zipf run under
-``lba_hash``), and the metric sums are held to ``SUM_ULP`` (their
-reduction order differs).
+the time leaves are bit-exact (``TIME_ULP``, 0: the port's timing core
+fuses the multiply-adds that the reference's compiled one fuses, which
+the Zipf run under ``lba_hash`` shows), and the metric sums are held to
+``SUM_ULP`` (their reduction order differs).
 """
 from fractions import Fraction
 
@@ -32,7 +32,7 @@ from repro_torch.workloads import generators as tgen
 
 SMALL = dict(num_sqs=8, sq_depth=64, fetch_width=16)
 SUM_ULP = 16
-TIME_ULP = 1
+TIME_ULP = 0
 SUMS = ("metrics.sum_e2e", "metrics.sum_target", "metrics.sum_proc",
         "metrics.tenant_sum_e2e")
 TIMES = ("cq.done_time", "cq.visible_time", "device.tstate.busy_until",
@@ -336,9 +336,9 @@ def test_generator_run_matches_reference(name):
     """24 rounds of each generator through ``simulate`` on the small drive
     (the Zipf loop under ``routing="lba_hash"``, the steady-state mix on a
     preconditioned drive): every integer and bool leaf equal, time leaves
-    within ``TIME_ULP`` (0 but for the Zipf run, where several rows share
-    a flash instance and the reference's compiled timing model contracts
-    a multiply-add), the metric sums within ``SUM_ULP``."""
+    within ``TIME_ULP`` (0; the Zipf run, where several rows share a flash
+    instance, reaches the timing core's fused multiply-adds), the metric
+    sums within ``SUM_ULP``."""
     (cj, wj), (ct, wt) = _pair(name)
     kw = RUN_SSD.get(name, {})
     sj, st = jt.SSDConfig(**kw), tt.SSDConfig(**kw)
@@ -350,8 +350,7 @@ def test_generator_run_matches_reference(name):
            for p, v in jax.tree_util.tree_flatten_with_path(ref)[0]}
     out = convert.engine_state_to_numpy(out)
     assert ref["metrics.completed"] > 0
-    time_ulp = TIME_ULP if name == "zipf" else 0
-    bounds = {**{k: SUM_ULP for k in SUMS}, **{k: time_ulp for k in TIMES}}
+    bounds = {**{k: SUM_ULP for k in SUMS}, **{k: TIME_ULP for k in TIMES}}
     assert not convert.leaf_differences(ref, out, bounds)
     if name == "steady":
         assert int(ref["device.flash.gc_count"]) == int(
