@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then
-runs fifteen phases, printing one JSON line each:
+runs seventeen phases, printing one JSON line each:
 
   env              nvidia-smi's card name and power limit, torch/CUDA
                    versions, kernel build seconds
@@ -129,6 +129,34 @@ runs fifteen phases, printing one JSON line each:
                    on a local drive, and its state against the CPU
                    port's; ``case_study(remote=True)`` on 1 and 4 drives
                    against the CPU
+  figures          the paper's own evaluation at its settings: every
+                   engine run of figs 03 (NVMeVirt and SwarmIO over the
+                   host transport, depths 8-512, 32 rounds), 10 (D7_PS1010
+                   at 256-32768 outstanding, 48 rounds), 12 (1-16 units
+                   at depth 256, 8 rounds; 5-45 MIOPS targets, 64 rounds),
+                   13 (base to D+A+C, 24 rounds), 14 (aggregated and
+                   per-request at 2-16 units, 32 rounds) and 15 (32-1024
+                   SQs; 512 B-8 KiB blocks, 24 rounds), 47 runs graphed
+                   with the reference's flags, and fig 04's closed form,
+                   against ``FIGURES_REFERENCE`` (every number to the last
+                   digit but fig 10's average E2E, within SUM_ULP); one run
+                   of each engine figure against the CPU port's state, and
+                   figs 10 and 14 once more with main_path_read's flags;
+                   fig 12 (a)'s graphed requests a wall-second; the paper's
+                   ratios (303.9x, 537x, 3.6x) from the card's numbers
+  variants         the engine's last variants: the skewed load of
+                   tests/test_engine.py under the global and the local
+                   timing scope (graphed equal to eager, card equal to the
+                   CPU port, global over twice local); stock local_1drive
+                   sanitized and unsanitized, graphed, bit-identical, with
+                   the device ms and events the checks add to a round,
+                   and again under the ready-time lock (the admission
+                   permutation's checks), bit-identical; a
+                   local-scope sanitized 2-drive array against the CPU
+                   port; an out-of-range SQ id through ``process`` raising
+                   ``SanitizeError`` (no device-side assert: the sanitized
+                   runner still works after it); one ``_submit_direct``
+                   call against the CPU port's
   serve_tier       ``python -m repro_torch.launch.serve --arch starcoder2-3b
                    --iops 40e6``'s objects at full width (batch 4, prompt
                    32, 16 tokens) with the attention kernels on: generate
@@ -2056,7 +2084,7 @@ def graphed_run(cfg, ssd, wl, rounds, dev, reps=2):
         runner.graph.launches
 
 
-def card_vs_cpu(out, cfg, ssd, wl, rounds, num_devices=1):
+def card_vs_cpu(out, cfg, ssd, wl, rounds, num_devices=1, plat=None):
     """Leaves of the card's final state that break their contract with the
     port's eager run on the CPU (integer leaves equal, float leaves
     bit-exact but the metric sums, within SUM_LEAF_ULP)."""
@@ -2064,8 +2092,9 @@ def card_vs_cpu(out, cfg, ssd, wl, rounds, num_devices=1):
     from repro_torch.core import engine
     from repro_torch.core.types import PlatformModel
 
-    cpu = engine.simulate(cfg, ssd, wl, PlatformModel(), rounds=rounds,
-                          num_devices=num_devices, device="cpu")
+    cpu = engine.simulate(cfg, ssd, wl, plat or PlatformModel(),
+                          rounds=rounds, num_devices=num_devices,
+                          device="cpu")
     return convert.leaf_differences(
         convert.engine_state_to_numpy(cpu),
         convert.engine_state_to_numpy(out),
@@ -2802,6 +2831,558 @@ def phase_fabric(dev, card, read_rec):
     return launches
 
 
+# -- phases: the paper's own evaluation and the engine's last variants -------
+
+FIG03_DEPTHS = (8, 32, 128, 512)
+FIG10_OUTSTANDING = (256, 1024, 4096, 16384, 32768)
+FIG12_UNITS = (1, 2, 4, 8, 16)
+FIG12_TARGETS = (5e6, 10e6, 20e6, 30e6, 40e6, 45e6)
+FIG13_CASES = (("base", None),
+               ("D", dict(coalesced=False, dsa_fetch=False)),
+               ("D+A", dict(coalesced=False, dsa_fetch=True)),
+               ("D+C", dict(coalesced=True, dsa_fetch=False)),
+               ("D+A+C", dict(coalesced=True, dsa_fetch=True)))
+FIG14_UNITS = (2, 4, 8, 16)
+FIG15_QUEUES = (32, 128, 512, 1024)
+FIG15_BLOCKS = (1, 2, 4, 8, 16)
+# benchmarks/figures.py::_frontend_only_platform (figs 03 and 13) and fig
+# 15's DSA roof of 42 GB/s over 16 engines.
+FRONTEND_ONLY = dict(per_req_map_us=0.0, dsa_desc_issue_us=0.0,
+                     dsa_batch_setup_us=0.0, dsa_bytes_per_us=1e9,
+                     lock_per_req_us=0.085, lock_per_batch_us=0.4)
+FIG15_PLATFORM = dict(dsa_bytes_per_us=42000.0 / 16)
+SSDS = {"FUTURE_40M": dict(t_max_iops=40e6, l_min_us=30.0),
+        "D7_PS1010": dict(t_max_iops=2.47e6, l_min_us=50.0)}
+
+
+def figure_cells():
+    """Every engine run of figs 03, 10 and 12-15 at the figure's own
+    settings (``benchmarks/figures.py:27-260``, not quick), as plain data
+    that either package builds its configs from: name -> dict(figure, row
+    (the row of ``FIGURES_REFERENCE``), engine (``swarmio_cfg`` or
+    ``nvmevirt_cfg``), cfg (its overrides), ssd (``FUTURE_40M`` or
+    ``D7_PS1010``), ssd_kw (``SSDConfig`` overrides), plat
+    (``PlatformModel`` fields), depth (the closed loop's io_depth), rounds,
+    read (which numbers the row reads))."""
+    cells = {}
+
+    def add(name, figure, row, engine, depth, rounds, read, cfg=None,
+            ssd="FUTURE_40M", ssd_kw=None, plat=None):
+        cells[name] = dict(figure=figure, row=row, engine=engine,
+                           cfg=cfg or {}, ssd=ssd, ssd_kw=ssd_kw or {},
+                           plat=plat or {}, depth=depth, rounds=rounds,
+                           read=read)
+
+    for d in FIG03_DEPTHS:
+        for eng in ("nvmevirt", "swarmio"):
+            add(f"fig03_{eng}_{d}", "fig03", f"depth_{d}", eng, d, 32,
+                f"{eng}_miops", cfg=dict(transport="host", sq_depth=1024),
+                plat=FRONTEND_ONLY)
+    for n_out in FIG10_OUTSTANDING:
+        depth = max(1, n_out // 32)
+        add(f"fig10_{n_out}", "fig10", f"outstanding_{n_out}", "swarmio",
+            depth, 48, "fig10", cfg=dict(sq_depth=max(1024, depth)),
+            ssd="D7_PS1010")
+    add("fig12_nvmevirt", "fig12", "units_0", "nvmevirt", 256, 8,
+        "virtual_miops")
+    for u in FIG12_UNITS:
+        add(f"fig12_units_{u}", "fig12", f"units_{u}", "swarmio", 256, 8,
+            "virtual_miops", cfg=dict(num_units=u))
+    for t in FIG12_TARGETS:
+        add(f"fig12_target_{t / 1e6:g}", "fig12", f"target_{t / 1e6:g}",
+            "swarmio", 1024, 64, "sustained", ssd_kw=dict(t_max_iops=t))
+    for name, kw in FIG13_CASES:
+        add(f"fig13_{name}", "fig13", name,
+            "nvmevirt" if kw is None else "swarmio", 1024, 24,
+            "frontend_miops",
+            cfg={} if kw is None else dict(batched_datapath=False, **kw),
+            ssd_kw=dict(t_max_iops=100e6, n_instances=1024),
+            plat=FRONTEND_ONLY)
+    for u in FIG14_UNITS:
+        for mode in ("aggregated", "per_request"):
+            add(f"fig14_{mode}_{u}", "fig14", f"units_{u}", "swarmio", 1024,
+                32, mode, cfg=dict(num_units=u, mode=mode),
+                ssd_kw=dict(t_max_iops=10e6 * u / 4))
+    for q in FIG15_QUEUES:
+        depth = max(2048 * 32 // q, 8)
+        add(f"fig15_queues_{q}", "fig15", f"queues_{q}", "swarmio", depth,
+            24, "miops",
+            cfg=dict(num_sqs=q, fetch_width=32, sq_depth=max(1024, depth)))
+    for nb in FIG15_BLOCKS:
+        add(f"fig15_block_{512 * nb}", "fig15", f"block_size_{512 * nb}",
+            "swarmio", 1024, 24, "block_size",
+            ssd_kw=dict(block_bytes=512 * nb), plat=FIG15_PLATFORM)
+    return cells
+
+
+def figure_config(cell, **flags):
+    """The port's (EngineConfig, SSDConfig, WorkloadConfig, PlatformModel)
+    of a ``figure_cells`` entry; ``flags`` adds EngineConfig fields."""
+    from repro_torch import bench
+    from repro_torch.core.types import PlatformModel, WorkloadConfig
+
+    make = (bench.local_1drive if cell["engine"] == "swarmio"
+            else bench.nvmevirt_1drive)
+    cfg, _ = make(**cell["cfg"], **flags)
+    ssd = getattr(bench, cell["ssd"]).replace(**cell["ssd_kw"])
+    return (cfg, ssd, WorkloadConfig(io_depth=cell["depth"]),
+            PlatformModel(**cell["plat"]))
+
+
+def figure_numbers(cell, metrics):
+    """A row's numbers of a final state's metrics, each computed as
+    ``benchmarks/figures.py`` computes it (virtual time: the emulated
+    drive's, not a speed of any chip)."""
+    iops = float(metrics.iops())
+    read = cell["read"]
+    ssd = dict(SSDS[cell["ssd"]], **cell["ssd_kw"])
+    if read == "fig10":
+        n_out = int(cell["row"].split("_")[1])
+        ref = min(ssd["t_max_iops"], n_out / (ssd["l_min_us"] * 1e-6))
+        return {"device_miops": ref / 1e6, "swarmio_miops": iops / 1e6,
+                "rel_err_pct": abs(iops - ref) / ref * 100,
+                "avg_e2e_us": float(metrics.avg_e2e_us()),
+                "p50_us": float(metrics.p50_us()),
+                "p95_us": float(metrics.p95_us()),
+                "p99_us": float(metrics.p99_us())}
+    if read == "sustained":
+        t = ssd["t_max_iops"]
+        return {"miops": iops / 1e6, "fraction": iops / t}
+    if read in ("aggregated", "per_request"):
+        return {"target_miops": ssd["t_max_iops"] / 1e6,
+                f"{read}_miops": iops / 1e6}
+    if read == "block_size":
+        nb = ssd["block_bytes"] // 512
+        return {"miops": iops / 1e6, "gbps": iops * 512 * nb / 1e9}
+    return {read: iops / 1e6}
+
+
+def fig04_numbers():
+    """Fig 04's closed form (``benchmarks/figures.py:52-67``) from the
+    port's ``PlatformModel()``: map/unmap and copy us of the baseline's
+    GPU-initiated copy path, map's share, the batched DSA path's us and
+    the per-request speedup."""
+    from repro_torch.core.types import PlatformModel
+
+    plat = PlatformModel()
+    txn = plat.txn_base_us + 512 / plat.link_bytes_per_us
+    total = plat.per_req_map_us + txn
+    dsa = plat.dsa_desc_issue_us + plat.dsa_batch_setup_us / 16 \
+        + 512 / plat.dsa_bytes_per_us
+    return {"map_us": plat.per_req_map_us, "copy_us": txn,
+            "map_fraction": plat.per_req_map_us / total,
+            "dsa_batched_us": dsa, "per_req_speedup": total / dsa}
+
+
+# The averages the reference adds in another order (its float32 running
+# sums), held to SUM_ULP of the recorded value; every other number to the
+# last digit.
+FIGURE_AVERAGES = ("avg_e2e_us",)
+SUM_ULP = 16
+FIGURE_CPU_ROWS = ("fig03_nvmevirt_8", "fig10_256", "fig12_units_1",
+                   "fig13_D+A+C", "fig14_aggregated_2", "fig15_block_512")
+FIGURE_FLAG_ROWS = ("fig10_256", "fig14_aggregated_2")
+
+
+# The reference's numbers of figs 03, 04, 10 and 12-15 at their own
+# settings: the rows of the CSVs that
+#     BENCH_OUT=<dir> PYTHONPATH=src python -m benchmarks.run --only figNN
+# wrote for fig03, fig04, fig10, fig12, fig13, fig14 and fig15 (not quick),
+# run with the JAX package on a CPU at commit 0a5cc64, each row keyed as
+# ``figure_cells`` keys it (fig 12's wall-clock columns, which time that
+# host, are left out). Virtual time: numbers of the emulated drive,
+# deterministic, not speeds of any chip.
+FIGURES_REFERENCE = {
+    "fig03": {
+        "depth_8": dict(nvmevirt_miops=3.79064325, swarmio_miops=5.8833915),
+        "depth_32": dict(nvmevirt_miops=5.6538575, swarmio_miops=23.525898),
+        "depth_128": dict(nvmevirt_miops=6.4021795, swarmio_miops=38.7489),
+        "depth_512": dict(nvmevirt_miops=6.4021795, swarmio_miops=39.262432),
+    },
+    "fig04": {
+        "closed_form": dict(map_us=2.9, copy_us=0.316,
+                            map_fraction=0.9017412935323383,
+                            dsa_batched_us=0.05269166666666667,
+                            per_req_speedup=61.034319152301116),
+    },
+    "fig10": {
+        "outstanding_256": dict(device_miops=2.47, swarmio_miops=2.068867875,
+                                rel_err_pct=16.240167004048583,
+                                avg_e2e_us=115.77111053466797,
+                                p50_us=117.57432556152344,
+                                p95_us=140.7464599609375,
+                                p99_us=140.7464599609375),
+        "outstanding_1024": dict(device_miops=2.47, swarmio_miops=2.352694,
+                                 rel_err_pct=4.74923076923077,
+                                 avg_e2e_us=348.1757507324219,
+                                 p50_us=414.1784362792969,
+                                 p95_us=414.1784362792969,
+                                 p99_us=495.80682373046875),
+        "outstanding_4096": dict(device_miops=2.47, swarmio_miops=2.41947925,
+                                 rel_err_pct=2.0453744939271252,
+                                 avg_e2e_us=1085.333251953125,
+                                 p50_us=1218.814208984375,
+                                 p95_us=1746.5760498046875,
+                                 p99_us=1746.5760498046875),
+        "outstanding_16384": dict(device_miops=2.47, swarmio_miops=2.4539005,
+                                  rel_err_pct=0.6518016194331984,
+                                  avg_e2e_us=3623.385986328125,
+                                  p50_us=3586.6376953125,
+                                  p95_us=6152.654296875,
+                                  p99_us=6152.654296875),
+        "outstanding_32768": dict(device_miops=2.47, swarmio_miops=2.4615595,
+                                  rel_err_pct=0.3417206477732793,
+                                  avg_e2e_us=6916.1416015625, p50_us=7365.25,
+                                  p95_us=12634.62890625,
+                                  p99_us=12634.62890625),
+    },
+    "fig12": {
+        "units_0": dict(virtual_miops=0.0752517109375),
+        "units_1": dict(virtual_miops=9.922327),
+        "units_2": dict(virtual_miops=16.002001),
+        "units_4": dict(virtual_miops=22.532302),
+        "units_8": dict(virtual_miops=28.308566),
+        "units_16": dict(virtual_miops=32.834118),
+        "target_5": dict(miops=4.9403115, fraction=0.9880623),
+        "target_10": dict(miops=9.879422, fraction=0.9879422),
+        "target_20": dict(miops=19.59205, fraction=0.9796025),
+        "target_30": dict(miops=29.18038, fraction=0.9726793333333333),
+        "target_40": dict(miops=38.660144, fraction=0.9665036),
+        "target_45": dict(miops=43.424596, fraction=0.9649910222222222),
+    },
+    "fig13": {
+        "base": dict(frontend_miops=0.096111),
+        "D": dict(frontend_miops=1.5000465),
+        "D+A": dict(frontend_miops=3.85764875),
+        "D+C": dict(frontend_miops=7.751368),
+        "D+A+C": dict(frontend_miops=47.700196),
+    },
+    "fig14": {
+        "units_2": dict(target_miops=5.0, aggregated_miops=4.571787,
+                        per_request_miops=3.572584),
+        "units_4": dict(target_miops=10.0, aggregated_miops=9.393552,
+                        per_request_miops=7.114146),
+        "units_8": dict(target_miops=20.0, aggregated_miops=19.018744,
+                        per_request_miops=9.850856),
+        "units_16": dict(target_miops=40.0, aggregated_miops=38.308808,
+                         per_request_miops=10.593315),
+    },
+    "fig15": {
+        "queues_32": dict(miops=18.125096),
+        "queues_128": dict(miops=19.61239),
+        "queues_512": dict(miops=16.414801),
+        "queues_1024": dict(miops=16.500257),
+        "block_size_512": dict(miops=37.318796, gbps=19.107223552),
+        "block_size_1024": dict(miops=35.55036, gbps=36.40356864),
+        "block_size_2048": dict(miops=19.044238, gbps=39.002599424),
+        "block_size_4096": dict(miops=9.874619, gbps=40.446439424),
+        "block_size_8192": dict(miops=5.03042, gbps=41.20920064),
+    },
+}
+
+
+def figure_violations(got, want):
+    """The numbers of a row off the recorded ones: every number to the
+    last digit but the averages of ``FIGURE_AVERAGES``, within ``SUM_ULP``
+    float32 ULP (the reference adds each running sum in another order)."""
+    import numpy as np
+
+    bad = {}
+    for k, v in want.items():
+        if k in FIGURE_AVERAGES:
+            a, b = np.array([got[k], v], np.float32).view(np.int32)
+            if abs(int(a) - int(b)) > SUM_ULP:
+                bad[k] = (got[k], v)
+        elif got.get(k) != v:
+            bad[k] = (got.get(k), v)
+    return bad
+
+
+def phase_figures(dev, card):
+    """The paper's own evaluation at its settings. Every engine run of
+    figs 03, 10 and 12-15 (``figure_cells``: 47 runs) graphed through
+    ``make_runner`` with the reference's flags (all kernel flags off), and
+    fig 04's closed form, against ``FIGURES_REFERENCE``; one run of each
+    engine figure against the CPU port's final state, and fig 10's and
+    fig 14's first runs again with main_path_read's flags against the CPU
+    port's with the same flags. Fig 12 (a)'s graphed requests a
+    wall-second (two timed calls after the capture) are written down, not
+    compared. The paper's ratios (fig 12's achieved IOPS over NVMeVirt's,
+    fig 13's D+A+C over base, fig 14's aggregated over per-request at 16
+    units) are printed from the card's numbers."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    t_phase = time.perf_counter()
+    rows, records = {}, []
+    for name, cell in figure_cells().items():
+        cfg, ssd, wl, plat = figure_config(cell)
+        t0 = time.perf_counter()
+        state = engine.init_state(cfg, ssd, wl, device=dev)
+        runner = engine.make_runner(cfg, ssd, wl, plat, cell["rounds"],
+                                    device=dev)
+        out = counted(lambda: runner(state), launches)
+        nums = figure_numbers(cell, out.metrics)
+        rec = {"cell": name, **nums,
+               "wall_s_with_capture": time.perf_counter() - t0}
+        if cell["figure"] == "fig12" and cell["read"] == "virtual_miops":
+            _, walls = counted(lambda: timed_runs(lambda: runner(state), 2),
+                               launches)
+            rec["graphed_requests_per_wall_s"] = (
+                float(out.metrics.completed) / statistics.median(walls))
+            rec["graphed_wall_s_runs"] = walls
+        if name in FIGURE_CPU_ROWS:
+            rec["card_vs_cpu_violations"] = card_vs_cpu(
+                out, cfg, ssd, wl, cell["rounds"], plat=plat)
+        if name in FIGURE_FLAG_ROWS:
+            cfg_on, _, _, _ = figure_config(cell, **READ_FLAGS)
+            on = counted(lambda: engine.make_runner(
+                cfg_on, ssd, wl, plat, cell["rounds"], device=dev)(
+                engine.init_state(cfg_on, ssd, wl, device=dev)), launches)
+            rec["read_flags_card_vs_cpu_violations"] = card_vs_cpu(
+                on, cfg_on, ssd, wl, cell["rounds"], plat=plat)
+        rows.setdefault(cell["figure"], {}).setdefault(cell["row"], {}) \
+            .update(nums)
+        records.append(rec)
+    rows["fig04"] = {"closed_form": fig04_numbers()}
+
+    bad = {}
+    for fig, want_rows in FIGURES_REFERENCE.items():
+        for row, want in want_rows.items():
+            off = figure_violations(rows.get(fig, {}).get(row, {}), want)
+            if off:
+                bad[f"{fig}/{row}"] = off
+    for rec in records:
+        for k in ("card_vs_cpu_violations",
+                  "read_flags_card_vs_cpu_violations"):
+            if rec.get(k):
+                bad[f"{rec['cell']}/{k}"] = rec[k]
+
+    f12, f13, f14 = rows["fig12"], rows["fig13"], rows["fig14"]
+    best = max(f12[f"units_{u}"]["virtual_miops"] for u in FIG12_UNITS)
+    ratios = {
+        "fig12_achieved_iops_over_nvmevirt":
+            best / f12["units_0"]["virtual_miops"],
+        "fig13_d_a_c_over_base":
+            f13["D+A+C"]["frontend_miops"] / f13["base"]["frontend_miops"],
+        "fig14_aggregated_over_per_request_16_units":
+            f14["units_16"]["aggregated_miops"]
+            / f14["units_16"]["per_request_miops"],
+    }
+    emit({"phase": "figures", "card": card, "rows": rows,
+          "records": records, "paper_ratios": ratios,
+          "off_reference": bad, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    check(not bad, f"figure rows off the reference: {bad}")
+    return launches
+
+
+SKEW_CFG = dict(num_sqs=8, sq_depth=256, fetch_width=64, num_units=8,
+                workers_per_unit=2, num_bufs=512, emulate_data=False)
+SKEW_SSD = dict(t_max_iops=1e7, l_min_us=30.0, n_instances=64,
+                num_blocks=1 << 12)
+SKEW_ROUNDS = 48
+
+
+def skewed_state(cfg, ssd, device):
+    """``tests/test_engine.py``'s skewed load: io_depth 256 prefilled, then
+    every SQ but SQ 0 emptied (all load on one unit)."""
+    import dataclasses
+
+    from repro_torch.core import engine
+    from repro_torch.core.types import WorkloadConfig
+
+    st = engine.init_state(cfg, ssd, WorkloadConfig(io_depth=256),
+                           device=device)
+    r = st.rings
+    tail, submit = r.tail.clone(), r.submit_time.clone()
+    tail[1:] = r.head[1:]
+    submit[1:] = 3e38
+    return dataclasses.replace(st, rings=dataclasses.replace(
+        r, submit_time=submit, tail=tail))
+
+
+def tree_differences(a, b):
+    """Indices of the leaves in which two trees of tensors (dataclasses and
+    tuples of them) differ, bit for bit, dtype and shape included; the
+    second tree's leaves are moved to the first's device."""
+    from repro_torch.cuda_graph import leaves
+
+    def flat(t):
+        if isinstance(t, tuple):
+            return [x for part in t for x in flat(part)]
+        return leaves(t)
+
+    la, lb = flat(a), flat(b)
+    return [i for i, (x, y) in enumerate(zip(la, lb))
+            if not bitwise_equal(x, y.to(x.device))] + (
+        ["count"] if len(la) != len(lb) else [])
+
+
+def phase_variants(dev, card):
+    """The engine's last variants on the card. ``tests/test_engine.py``'s
+    skewed load (all of it on one of 8 units, 48 rounds) under the global
+    and the local timing scope: graphed equal to eager, card equal to the
+    CPU port, global IOPS over twice the local. Stock ``local_1drive``
+    (depth 256, 24 rounds) graphed sanitized and unsanitized: bit-identical
+    final states, and the device ms and events the checks add to a round;
+    the same drive under the ready-time lock (whose admission permutation
+    the checks also read), sanitized and unsanitized, bit-identical.
+    A local-scope, sanitized 2-drive ``simulate`` against the CPU port. A
+    fetched batch with one out-of-range SQ id through ``process`` with the
+    flags given: ``SanitizeError`` naming the SQ id, and the sanitized
+    runner then still gives its earlier state. One ``_submit_direct``
+    call of 8192 rows against the CPU port's, bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.bench import local_1drive
+    from repro_torch.core import device as devmod
+    from repro_torch.core import engine, frontend
+    from repro_torch.core.types import (EngineConfig, PlatformModel,
+                                        SSDConfig, WorkloadConfig)
+    from repro_torch.kernels import ops
+
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    t_phase = time.perf_counter()
+    plat = PlatformModel()
+    bad = {}
+
+    skew = {}
+    ssd = SSDConfig(**SKEW_SSD)
+    wl1 = WorkloadConfig(io_depth=1)
+    for scope in ("global", "local"):
+        cfg = EngineConfig(**SKEW_CFG, timing_scope=scope)
+        runner = engine.make_runner(cfg, ssd, wl1, plat, SKEW_ROUNDS,
+                                    device=dev)
+        graphed = counted(lambda: runner(skewed_state(cfg, ssd, dev)),
+                          launches)
+        eager = counted(lambda: engine.run(skewed_state(cfg, ssd, dev), cfg,
+                                           ssd, wl1, plat, SKEW_ROUNDS),
+                        launches)
+        cpu = engine.run(skewed_state(cfg, ssd, "cpu"), cfg, ssd, wl1, plat,
+                         SKEW_ROUNDS)
+        g_np = convert.engine_state_to_numpy(graphed)
+        skew[scope] = {
+            "virtual_miops": float(graphed.metrics.iops()) / 1e6,
+            "graph_vs_eager_differing_leaves": convert.leaf_differences(
+                convert.engine_state_to_numpy(eager), g_np),
+            "card_vs_cpu_violations": convert.leaf_differences(
+                convert.engine_state_to_numpy(cpu), g_np,
+                dict.fromkeys(SUM_LEAVES, SUM_LEAF_ULP))}
+        for k in ("graph_vs_eager_differing_leaves",
+                  "card_vs_cpu_violations"):
+            if skew[scope][k]:
+                bad[f"skew_{scope}/{k}"] = skew[scope][k]
+    g, loc = skew["global"]["virtual_miops"], skew["local"]["virtual_miops"]
+    if not g > 2 * loc:
+        bad["skew_global_over_local"] = (g, loc)
+
+    cfg, ssd40 = local_1drive()
+    wl = WorkloadConfig(io_depth=256)
+    state = engine.init_state(cfg, ssd40, wl, device=dev)
+    outs, speeds, runners = {}, {}, {}
+    for s in (False, True):
+        runners[s] = engine.make_runner(cfg, ssd40, wl, plat, ROUNDS,
+                                        device=dev, sanitize=s)
+        outs[s] = counted(lambda: runners[s](state), launches)
+        _, walls = timed_runs(lambda: runners[s](state), 3)
+        prof = profiled_window(lambda: runners[s](state), ROUNDS)
+        speeds["sanitized" if s else "unsanitized"] = {
+            "wall_ms_per_round": statistics.median(walls) * 1e3 / ROUNDS,
+            **profile_summary(statistics.median(walls) * 1e3 / ROUNDS,
+                              prof)}
+    san = convert.leaf_differences(convert.engine_state_to_numpy(outs[False]),
+                                   convert.engine_state_to_numpy(outs[True]))
+    if san:
+        bad["sanitized_vs_unsanitized"] = san
+    rcfg = cfg.replace(lock_order="ready_time")
+    rstate = engine.init_state(rcfg, ssd40, wl, device=dev)
+    ready = [convert.engine_state_to_numpy(counted(
+        lambda: engine.make_runner(rcfg, ssd40, wl, plat, ROUNDS, device=dev,
+                                   sanitize=s)(rstate), launches))
+        for s in (False, True)]
+    ready_san = convert.leaf_differences(*ready)
+    if ready_san:
+        bad["ready_time_sanitized_vs_unsanitized"] = ready_san
+    on, off = (speeds[k]["profiled"] for k in ("sanitized", "unsanitized"))
+    added = {k: on[k] - off[k] for k in ("device_ms_per_round",
+                                         "device_events_per_round")}
+
+    lcfg = cfg.replace(timing_scope="local", sanitize=True)
+    arr = counted(lambda: engine.simulate(lcfg, ssd40, wl, plat, rounds=8,
+                                          num_devices=2, device=dev),
+                  launches)
+    arr_viol = card_vs_cpu(arr, lcfg, ssd40, wl, 8, num_devices=2)
+    if arr_viol:
+        bad["local_sanitized_array"] = arr_viol
+
+    scfg = cfg.replace(sanitize=True)
+    st = engine.init_state(scfg, ssd40, wl, device=dev)
+    pipe = devmod.DevicePipeline(scfg, ssd40, plat)
+    unit = frontend.fetch_row_units(scfg, dev)
+    _, disp, batch, fetch_done = frontend.fetch(
+        st.rings, st.clock, st.device.disp_time, scfg, plat)
+    dstate = dataclasses.replace(st.device, disp_time=disp)
+    flags = devmod.new_flags(dev)
+    pipe.process(dstate, batch, fetch_done, unit, st.cq, ring_layout=True,
+                 flags=flags)
+    clean_bits = int(flags.item())
+    sq_id, valid = batch.sq_id.clone(), batch.valid.clone()
+    sq_id[0], valid[0] = scfg.num_sqs + 3, True
+    pipe.process(dstate, dataclasses.replace(batch, sq_id=sq_id, valid=valid),
+                 fetch_done, unit, st.cq, ring_layout=True, flags=flags)
+    try:
+        devmod.raise_if_flagged(flags)
+        caught = None
+    except devmod.SanitizeError as e:
+        caught = str(e)
+    if clean_bits or not (caught and "SQ id" in caught):
+        bad["injected_sq_id"] = (clean_bits, caught)
+    again = counted(lambda: runners[True](state), launches)
+    after = convert.leaf_differences(convert.engine_state_to_numpy(outs[True]),
+                                     convert.engine_state_to_numpy(again))
+    if after:
+        bad["run_after_injection"] = after
+
+    rng = np.random.default_rng(0)
+    n = 8192
+    host = dict(
+        lba=torch.from_numpy(rng.integers(0, 1 << 14, n).astype(np.int32)),
+        t=torch.from_numpy((100 + 40 * rng.random(n)).astype(np.float32)),
+        valid=torch.from_numpy(rng.random(n) < 0.85),
+        opcode=torch.from_numpy((rng.random(n) < 0.3).astype(np.int32)))
+    results = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        x = {k: v.to(where) for k, v in host.items()}
+        b = devmod.make_direct_batch(x["lba"], x["t"], x["valid"],
+                                     x["opcode"])
+        p = devmod.DevicePipeline(cfg, ssd40, plat)
+        results[key] = counted(
+            lambda: p._submit_direct(p.init_state(where), b), launches)
+    direct = tree_differences(results["cpu"], results["card"])
+    if direct:
+        bad["submit_direct_card_vs_cpu"] = direct
+
+    emit({"phase": "variants", "card": card, "skewed_load": skew,
+          "sanitizer": {**speeds, "added_per_round": added,
+                        "sanitized_vs_unsanitized_differing_leaves": san,
+                        "ready_time_sanitized_vs_unsanitized_differing_leaves":
+                            ready_san},
+          "local_sanitized_array_card_vs_cpu_violations": arr_viol,
+          "injected_sq_id": {"clean_bits": clean_bits, "raised": caught,
+                             "run_after_differing_leaves": after},
+          "submit_direct_card_vs_cpu_differing": direct,
+          "off_reference": bad, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    check(not bad, f"variants off: {bad}")
+    return launches
+
+
 # -- phases: the serving path -------------------------------------------------
 
 # The reference's kv_tier.decode_tokens_per_s at the serve command's
@@ -3160,6 +3741,7 @@ def main() -> int:
     for counts in (phase_vector_search(dev, card), phase_workloads(dev, card),
                    phase_array(dev, card), phase_cache(dev, card),
                    phase_qp(dev, card), phase_fabric(dev, card, read),
+                   phase_figures(dev, card), phase_variants(dev, card),
                    phase_serve_tier(dev, card), phase_serve_long(dev, card)):
         for k, v in counts.items():
             launches[k] += v

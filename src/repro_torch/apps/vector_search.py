@@ -47,7 +47,6 @@ import torch
 
 from repro_torch import cuda_graph
 from repro_torch.core.client import ClientState, StorageClient
-from repro_torch.core.device import check_ported
 from repro_torch.core.segops import stable_argsort
 from repro_torch.core.xla_math import lane_mean, lane_sum
 from repro_torch.core.types import (
@@ -270,7 +269,6 @@ class _Searcher:
     def __init__(self, cfg: SearchConfig, ssd: SSDConfig,
                  ecfg: EngineConfig, plat: PlatformModel, graphed: bool,
                  num_devices: int = 1):
-        check_ported(ecfg)
         if num_devices < 1:
             raise ValueError(f"num_devices={num_devices} must be >= 1")
         self.cfg, self.graphed = cfg, graphed
@@ -484,7 +482,6 @@ def case_study(
     else:
         fabric = FabricConfig()
     ssd, ecfg = case_configs(n, t_max_iops, cache_sets, fabric)
-    check_ported(ecfg)
     device = resolve_device(device)
     cfg = SearchConfig(beam_width=width, iterations=iterations)
     vecs, graph = _cached_index(n, cfg.dim, cfg.degree, seed, device)

@@ -25,6 +25,14 @@ leaf has a leading ``(M,)`` drive axis, where the reference vmaps: each
 stage reduces, scans, gathers and scatters per drive, so drive d's leaves
 are bit for bit those of a single drive of salt d, and one array round is
 one CUDA graph whose engine kernels launch once each for all M drives.
+
+``make_runner(sanitize=True)`` (or ``cfg.sanitize``) runs the pipeline's
+invariant checks in every round (``device._sanitize_checks``): they write
+a flag tensor on the run's device, which is one more static buffer of the
+captured round, and the runner reads it once after the run and raises
+``device.SanitizeError``. The checks only observe, so the final state is
+the unsanitized run's bit for bit; with sanitize off a round runs none of
+them.
 """
 from __future__ import annotations
 
@@ -38,8 +46,9 @@ import torch
 from repro_torch import cuda_graph
 from repro_torch.core import cache as cache_mod
 from repro_torch.core import datapath, frontend, segops
+from repro_torch.core import device as device_mod
 from repro_torch.core.cache import CacheState
-from repro_torch.core.device import DevicePipeline, DeviceState, check_ported
+from repro_torch.core.device import DevicePipeline, DeviceState
 from repro_torch.core.device import init_array_state as init_array_state_of
 from repro_torch.core.frontend import SQRings
 from repro_torch.core.qp import CQRings
@@ -405,11 +414,13 @@ def engine_round(
     ssd: SSDConfig,
     wl: "Workload | WorkloadConfig",
     plat: PlatformModel,
+    flags: Optional[torch.Tensor] = None,
 ) -> EngineState:
     """One round of one drive, or of every drive of an array (a leading
     ``(M,)`` axis on every leaf): each drive's leaves come out as a round
     of that drive alone would leave them, and each engine kernel launches
-    once for all the drives."""
+    once for all the drives. A sanitized round ORs its checks into
+    ``flags``."""
     wl = as_workload(wl)
     pipe = DevicePipeline(cfg, ssd, plat)
     q, f = cfg.num_sqs, cfg.fetch_width
@@ -427,7 +438,8 @@ def engine_round(
     # -- 2-5. the device pipeline (timing + data path + flash + QP) ----------
     dev = dataclasses.replace(state.device, disp_time=disp_time)
     dev, cqr, res = pipe.process(
-        dev, batch, fetch_done, unit, state.cq, ring_layout=True
+        dev, batch, fetch_done, unit, state.cq, ring_layout=True,
+        flags=flags,
     )
 
     # -- completion metrics: the consumer observes ``reaped`` ----------------
@@ -559,10 +571,15 @@ def run(
     plat: PlatformModel,
     rounds: int,
 ) -> EngineState:
-    """Run ``rounds`` engine rounds."""
+    """Run ``rounds`` engine rounds. A sanitized run raises
+    ``device.SanitizeError`` after the last round if a check failed."""
     wl = as_workload(wl)
+    flags = (device_mod.new_flags(state.clock.device) if cfg.sanitize
+             else None)
     for _ in range(rounds):
-        state = engine_round(state, cfg, ssd, wl, plat)
+        state = engine_round(state, cfg, ssd, wl, plat, flags)
+    if flags is not None:
+        device_mod.raise_if_flagged(flags)
     return state
 
 
@@ -579,9 +596,12 @@ class _GraphRunner:
 
     def __init__(self, cfg, ssd, wl, plat, rounds: int, donate: bool,
                  device: torch.device):
-        self.args = (cfg, ssd, wl, plat)
         self.rounds, self.donate = rounds, donate
         self.device = cuda_graph.cuda_index(device)
+        # A sanitized round writes its checks into one more static buffer.
+        self.flags = (device_mod.new_flags(self.device) if cfg.sanitize
+                      else None)
+        self.args = (cfg, ssd, wl, plat, self.flags)
         self.static: "EngineState | None" = None
         self.graph: "cuda_graph.Captured | None" = None
 
@@ -602,7 +622,11 @@ class _GraphRunner:
                 warm=lambda: engine_round(self.static, *self.args))
         elif state is not self.static:
             cuda_graph.copy_into(self.static, state)
+        if self.flags is not None:
+            self.flags.zero_()
         self.graph.replay(self.rounds)
+        if self.flags is not None:
+            device_mod.raise_if_flagged(self.flags)
         return self.static if self.donate else unalias(self.static)
 
 
@@ -610,9 +634,10 @@ def make_runner(
     cfg: EngineConfig, ssd: SSDConfig, wl, plat: PlatformModel,
     rounds: int, donate: bool = False,
     device: "torch.device | str | None" = None,
+    sanitize: bool = False,
 ) -> Callable[[EngineState], EngineState]:
     """The engine runner with static configs bound, for states on
-    ``device`` (``cuda`` unless named). Unported branches raise here.
+    ``device`` (``cuda`` unless named).
 
     On a card the runner captures one ``engine_round`` into a CUDA graph
     at its first call (after one eager warm round on the capture stream)
@@ -628,9 +653,15 @@ def make_runner(
     by ``r(b)`` turns ``x`` into ``r(b)``'s result (``unalias(x)`` keeps a
     copy). On the CPU the runner is the eager loop, and ``donate`` only
     permits that reuse.
+
+    ``sanitize=True`` (or ``cfg.sanitize``) runs the invariant checks in
+    every round and raises ``device.SanitizeError`` from the runner, after
+    the run, on the first violated one; the final state is the
+    unsanitized runner's bit for bit.
     """
     device = resolve_device(device)
-    check_ported(cfg)
+    if sanitize:
+        cfg = cfg.replace(sanitize=True)
     wl = as_workload(wl)
     if device.type == "cuda":
         return _GraphRunner(cfg, ssd, wl, plat, rounds, donate, device)
@@ -649,6 +680,7 @@ def make_array_runner(
     cfg: EngineConfig, ssd: SSDConfig, wl, plat: PlatformModel,
     rounds: int, donate: bool = False,
     device: "torch.device | str | None" = None,
+    sanitize: bool = False,
 ) -> Callable[[EngineState], EngineState]:
     """The M-drive array runner: ``make_runner``'s contract for a stacked
     state (``init_array_state``: a leading ``(M,)`` axis on every leaf).
@@ -657,9 +689,10 @@ def make_array_runner(
     the drive axis itself, so one ``engine_round`` prices all M drives,
     each as it would be priced alone, and each engine kernel launches once
     a round for the whole array. On a card one array round is one captured
-    CUDA graph, replayed ``rounds`` times; ``donate`` as in
-    ``make_runner``."""
-    runner = make_runner(cfg, ssd, wl, plat, rounds, donate, device)
+    CUDA graph, replayed ``rounds`` times; ``donate`` and ``sanitize`` as
+    in ``make_runner`` (a check fails if it fails on any drive)."""
+    runner = make_runner(cfg, ssd, wl, plat, rounds, donate, device,
+                         sanitize)
 
     def array_runner(states: EngineState) -> EngineState:
         if states.clock.dim() != 1:

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core.segops import (
     scatter_last,
+    segment_max,
     segment_rank,
     segment_sum,
     seq_cumsum,
@@ -36,6 +37,7 @@ from repro_torch.core.types import (
     PlatformModel,
     RequestBatch,
 )
+from repro_torch.core.xla_math import _fma32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,6 +327,55 @@ def fetch_row_units(cfg: EngineConfig, device) -> torch.Tensor:
         torch.arange(rows, dtype=I32, device=device), rows // u,
         rounding_mode="floor",
     )
+
+
+def direct_fetch_times(
+    disp_time: torch.Tensor,  # (U,) f32 dispatcher busy-until cursors
+    t_submit: torch.Tensor,   # (N,) f32 virtual submission times
+    valid: torch.Tensor,      # (N,) bool
+    cfg: EngineConfig,
+    plat: PlatformModel,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ring-less frontend of a directly submitted flat batch (a test
+    path: ``DevicePipeline._fetch_direct``; every consumer goes through the
+    SQ rings). Requests are dealt to the U units in contiguous runs of
+    ``ceil(N / U)``, and each unit's dispatcher streams its run in, one
+    coalesced transaction per ``fetch_width`` entries (or one a request
+    when coalescing is off).
+
+    The compiled reference turns ``sqe_bytes / bw`` into a product with
+    the float32 reciprocal of ``bw`` and fuses both products of
+    ``start + n_txn*txn + (rank+1)*sqe*(1/bw)`` (and the uncoalesced
+    ``start + (rank+1)*per_entry``) into its adds, one rounding each
+    (pinned through ``jax.jit``); ``_fma32`` does the same. Returns
+    (fetch_done (N,), disp_time' (U,), unit (N,)), ``unit``
+    non-decreasing."""
+    n = t_submit.shape[-1]
+    u = disp_time.shape[-1]
+    per_unit = -(-n // u)
+    idx = torch.arange(n, dtype=I32, device=t_submit.device)
+    unit = torch.div(idx, per_unit, rounding_mode="floor")
+    rank = idx - unit * per_unit
+    start = torch.maximum(t_submit, take(disp_time, unit))
+    r1 = (rank + 1).to(F32)
+    if cfg.coalesced:
+        if cfg.transport == "host":
+            txn, bw = plat.host_txn_base_us, plat.host_bytes_per_us
+        else:
+            txn, bw = plat.txn_base_us, plat.link_bytes_per_us
+        n_txn = (torch.div(rank, cfg.fetch_width, rounding_mode="floor")
+                 + 1).to(F32)
+        at_txn = _fma32(n_txn, torch.full_like(n_txn, float(np.float32(txn))),
+                        start)
+        recip = float(np.float32(1.0) / np.float32(bw))
+        fetch_done = _fma32(r1 * float(np.float32(plat.sqe_bytes)),
+                            torch.full_like(r1, recip), at_txn)
+    else:
+        fetch_done = _fma32(
+            r1, torch.full_like(r1, _per_entry_cost(cfg, plat)), start)
+    fetch_done = torch.where(valid, fetch_done, 0.0)
+    disp_time = torch.maximum(segment_max(fetch_done, unit, u), disp_time)
+    return fetch_done, disp_time, unit
 
 
 def _per_entry_cost(cfg: EngineConfig, plat: PlatformModel) -> float:

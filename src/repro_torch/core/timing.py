@@ -248,6 +248,45 @@ def aggregated_update(
     return TimingState(new_busy, rr), completion
 
 
+def local_scope_update(
+    state: TimingState,
+    arrival: torch.Tensor,  # (N,) f32, N % num_units == 0, unit-major
+    valid: torch.Tensor,    # (N,) bool
+    ssd: SSDConfig,
+    num_units: int,
+    use_compaction: bool = False,
+) -> Tuple[TimingState, torch.Tensor]:
+    """The paper's rejected design (§IV-D ablation): per-unit timing state.
+
+    Each service unit owns a 1/U slice of the drive's instances and
+    capacity (``t_max_iops / U``, ``n_instances // U``), so skewed load
+    caps at 1/U of the target. Rows must be unit-major with equal counts
+    per unit. The reference vmaps the per-unit update over the U units;
+    here the unit axis is one more leading axis of the batched forms, (N,)
+    as (U, N/U) and the (K,) cursors as (U, K/U), each unit then priced as
+    a drive of its own. Every unit starts from the shared cursor, and the
+    new cursor is unit 0's, as in the reference. Returns (state',
+    completion)."""
+    u = num_units
+    k_u = max(ssd.n_instances // u, 1)
+    local_ssd = ssd.replace(t_max_iops=ssd.t_max_iops / u, n_instances=k_u)
+    lead = tuple(arrival.shape[:-1])
+
+    def units(x):
+        return x.reshape(lead + (u, -1))
+
+    bu = units(state.busy_until)
+    rr = state.rr[..., None].expand(lead + (u,))
+    val, arr = units(valid), units(arrival)
+    if use_compaction and ssd.routing == "round_robin":
+        comp, nb, rr_new = compact_rr_batch_times(bu, arr, rr, val, local_ssd)
+    else:
+        inst, rr_new = assign_rr(rr, val, k_u)
+        comp, nb = aggregated_batch_times(bu, arr, inst, val, local_ssd)
+    return (TimingState(nb.reshape(lead + (-1,)), rr_new[..., 0]),
+            comp.reshape(lead + (-1,)))
+
+
 def update(
     state: TimingState,
     batch: RequestBatch,

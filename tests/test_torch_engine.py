@@ -238,13 +238,14 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     dict(timing_scope="local"), dict(sanitize=True),
 ])
 def test_unported_branches_raise_when_built(kw):
-    cfg = tt.EngineConfig(**SMALL).replace(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        te.make_runner(cfg, tt.SSDConfig(), tt.WorkloadConfig(io_depth=4),
-                       tt.PlatformModel(), 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        te.init_state(cfg, tt.SSDConfig(), tt.WorkloadConfig(io_depth=4),
-                      device="cpu")
+    """The two branches the port once refused when a runner was built (the
+    local timing scope and the sanitizer) are ported: each builds and runs
+    one round on the CPU, and its final state agrees with the reference's
+    leaf by leaf (``tests/test_torch_variants.py`` holds them further)."""
+    wls = (jt.WorkloadConfig(io_depth=4), tt.WorkloadConfig(io_depth=4))
+    ref, out = run_both(dict(SMALL, **kw), {}, {}, wls, 1)
+    assert out["metrics.fetched"] > 0
+    assert not convert.leaf_differences(ref, out, SUM_BOUNDS)
 
 
 def test_array_simulation_is_not_ported_yet():

@@ -7,7 +7,14 @@ compiled reference fuses (``timing._sorted_batch_core``), which the port
 fuses as well: 39262432 virtual IOPS in both, every leaf of the final
 state equal but the metrics' float sums, which XLA adds in another
 order and the per-tenant sum within its recursion's bound
-(``tests/test_torch_fabric.py::assert_states_agree``)."""
+(``tests/test_torch_fabric.py::assert_states_agree``).
+
+Its NVMeVirt cells (``nvmevirt_cfg(transport="host", sq_depth=1024)``, the
+same platform and rounds) are rows of ``chip_smoke.FIGURES_REFERENCE``,
+which the ``figures`` phase holds the card to: the cell at depth 8 is
+recomputed here from the reference and from the port, every number to
+the last digit and the final state leaf by leaf
+(``test_torch_figures_validation.check_cells``)."""
 import jax
 import numpy as np
 
@@ -18,6 +25,7 @@ from repro_torch import convert
 from repro_torch.core import engine as te
 from repro_torch.core import types as tt
 from test_torch_fabric import assert_states_agree, tconfig
+from test_torch_figures_validation import check_cells
 
 
 def test_fig03_swarmio_cell_at_depth_512():
@@ -34,3 +42,7 @@ def test_fig03_swarmio_cell_at_depth_512():
     want = {jax.tree_util.keystr(p).lstrip("."): np.asarray(v)
             for p, v in jax.tree_util.tree_flatten_with_path(ref)[0]}
     assert_states_agree(want, convert.engine_state_to_numpy(out))
+
+
+def test_fig03_nvmevirt_cell_at_depth_8():
+    check_cells("fig03_nvmevirt_8")
