@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then
-runs seventeen phases, printing one JSON line each:
+runs eighteen phases, printing one JSON line each (with the phase's
+seconds, ``phase_s``):
 
   env              nvidia-smi's card name and power limit, torch/CUDA
                    versions, kernel build seconds
@@ -178,6 +179,19 @@ runs seventeen phases, printing one JSON line each:
                    plain path, teacher-forced on the kernel run's tokens,
                    must agree on the prefill's and every decode step's
                    logits
+  serve_archs      every other architecture the reference serves, one at a
+                   time at full width: recurrentgemma-9b and
+                   qwen2-moe-a2.7b (full depth) through ``launch.serve``'s
+                   objects and ``serve_with_kv_tier`` (the tier's numbers
+                   the reference's), xlstm-1.3b and musicgen-large (full
+                   depth), qwen3-moe-30b-a3b (8 of 48 layers) and
+                   qwen2-vl-72b (2 of 80, prefilled from patch embeddings
+                   and M-RoPE ids) through prefill and the graphed decode
+                   step; for each the kernel decode teacher-forced against
+                   the plain full-sequence forward, graphed against eager
+                   decode bit for bit, no NaN, the graphed step's wall and
+                   device ms, and the SMOKE config's plain path on the
+                   card against the CPU
 
 After the kernels phase, one line ``{"launch_floor": ...}`` times an
 empty kernel (``csrc/launch_floor.cu``) through the wrappers' launch path:
@@ -207,6 +221,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 ROUNDS = 24
+# Rounds a profiled window of a longer run covers. The profiler's
+# host-side processing of every device event (~1100-2900 a round) set
+# the time of the phases that run 32-192 rounds: with whole-run windows
+# the script took 1073-1269 s on one H100 host, against a 1200-s limit.
+PROFILE_ROUNDS = 24
 SUM_LEAF_ULP = 256          # cpu_vs_card bound for the metrics' float sums
 
 
@@ -219,13 +238,27 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+# perf_counter() at the start of the running phase (``run_phase``).
+PHASE_START = [time.perf_counter()]
+
+
+def run_phase(fn, *args):
+    """Call one phase, its start noted for the ``phase_s`` of its line."""
+    PHASE_START[0] = time.perf_counter()
+    return fn(*args)
+
+
 def emit(obj) -> None:
     """Print one JSON line; a record of the card's also says how many
     profiler windows since the last such record recorded no device event
-    and were taken again (``PROFILER_TRIES``)."""
+    and were taken again (``PROFILER_TRIES``), and a phase's line the
+    seconds since its phase started (``phase_s``) where it does not time
+    itself."""
     if "card" in obj:
         obj = {**obj, "empty_profiler_windows": EMPTY_WINDOWS[0]}
         EMPTY_WINDOWS[0] = 0
+    if "phase" in obj and "phase_s" not in obj:
+        obj = {**obj, "phase_s": time.perf_counter() - PHASE_START[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -466,6 +499,14 @@ def kernel_cases(dev):
              ("D=256 group 2, S=300", fa(2, 4, 2, 300, d=256)),
              ("D=256 window 100 softcap 30, S=513",
               fa(1, 8, 2, 513, d=256, window=100, logit_softcap=30.0))]
+    # The serving shapes of the other architectures (``ARCH_SHAPES``):
+    # recurrentgemma-9b's local layers (16 q heads on 1 KV head, D = 256,
+    # window 2048, S past the window), musicgen-large (32 heads, D = 64),
+    # qwen3-moe-30b-a3b (32 on 4) and qwen2-vl-72b (64 on 8).
+    flash += [(ARCH_SHAPES[0], fa(2, 16, 1, 4096, d=256, window=2048)),
+              (ARCH_SHAPES[1], fa(4, 32, 32, 1024, d=64)),
+              (ARCH_SHAPES[2], fa(4, 32, 4, 1024)),
+              (ARCH_SHAPES[3], fa(4, 64, 8, 1024))]
 
     def da(b, hq, hkv, s_len, lens, dtype=bf16, d=128, **kw):
         g = torch.Generator(device=dev).manual_seed(s_len + hq + b)
@@ -501,6 +542,12 @@ def kernel_cases(dev):
                da(2, 8, 2, 700, [700, 64], d=256, window=100)),
               ("D=64 group 12", da(2, 24, 2, 1000, [1000, 513], d=64)),
               ("bf16 D=96 (SIMT body)", da(2, 8, 2, 500, [500, 77], d=96))]
+    decode += [(ARCH_SHAPES[0], da(4, 16, 1, 4224, [4224, 4097, 2049, 100],
+                                   d=256, window=2048)),
+               (ARCH_SHAPES[1], da(4, 32, 32, 1024, [1024, 1000, 513, 48],
+                                   d=64)),
+               (ARCH_SHAPES[2], da(4, 32, 4, 1024, [1024, 1000, 513, 48])),
+               (ARCH_SHAPES[3], da(4, 64, 8, 1024, [1024, 1000, 513, 48]))]
 
     # Cases added with the redesigned die_contention and fused_reap; their
     # data is drawn after every earlier case's, which stays as it was.
@@ -658,6 +705,12 @@ def kernel_cases(dev):
 
 EXACT = ("seg_scan", "die_contention", "fused_reap", "block_gather",
          "block_gather_tiled")
+# The attention cases at the other architectures' serving shapes, timed
+# beside the main case (``arch_shapes`` of the kernels line).
+ARCH_SHAPES = ("recurrentgemma-9b local: 16 on 1 heads, D=256, window 2048",
+               "musicgen-large: 32 heads, D=64",
+               "qwen3-moe-30b-a3b: 32 on 4 heads",
+               "qwen2-vl-72b: 64 on 8 heads")
 ATTENTION = ("flash_attention", "decode_attention")
 
 
@@ -809,7 +862,7 @@ def phase_kernels(dev, card):
     from repro_torch.kernels import build
 
     out = {}
-    detail = []
+    detail, arch_shapes = [], []
     for name, kern, plain, cases in kernel_cases(dev):
         for label, (args, kw) in cases:
             before = [a.clone() for a in args] if name == "fused_reap" else []
@@ -830,6 +883,9 @@ def phase_kernels(dev, card):
             check(ok, f"{name} [{label}] differs from its plain version "
                       f"(max |diff| {err})")
             del got, want
+            if label in ARCH_SHAPES:
+                arch_shapes.append(shape_timing(name, kern, plain, args, kw,
+                                                label))
         main, kw = cases[0][1]
         nbytes, ops, peak = kernel_work(name, main, kw)
         b_ms, b_by = bound(nbytes, ops, peak)
@@ -883,8 +939,24 @@ def phase_kernels(dev, card):
           "tolerance": {"gather and engine kernels": "bit-identical",
                         "attention f32": "|diff| <= 1e-4",
                         "attention bf16": "|diff| <= 2^-7 |plain| + 1e-5"},
-          "cases": detail, "timing": out, "attention": attention})
+          "cases": detail, "timing": out, "attention": attention,
+          "arch_shapes": arch_shapes})
     return out
+
+
+def shape_timing(name, kern, plain, args, kw, label):
+    """An attention kernel's card ms, device ms and events a call, its
+    plain version's ms, bound and (without a window) SDPA's ms at one
+    case's inputs."""
+    b_ms, b_by = bound(*kernel_work(name, args, kw))
+    lib = library_fn(name, args) if kw.get("window") is None else None
+    dev_ms, events = device_ms(lambda: kern(*args, **kw))
+    return {"kernel": name, "case": label,
+            "ms": median_ms(lambda: kern(*args, **kw)),
+            "device_ms": dev_ms, "device_events_per_call": events,
+            "plain_ms": median_ms(lambda: plain(*args, **kw), reps=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": median_ms(lib) if lib else None}
 
 
 def phase_launch_floor(card):
@@ -1507,9 +1579,10 @@ def workload_numbers(state):
 def phase_workloads(dev, card):
     """Every cell of ``workload_cells`` graphed through ``make_runner`` on
     the card with the reference's flags (all off): virtual numbers, wall
-    and device ms a round, and the final state against the port run
-    eagerly on the CPU (integer leaves equal, float leaves bit-exact but
-    the metric sums, within SUM_LEAF_ULP), and figs 18-20's virtual
+    ms a round, device ms a round over the first ``PROFILE_ROUNDS``
+    rounds (``profiled_rounds``), and the final state against the port
+    run eagerly on the CPU (integer leaves equal, float leaves bit-exact
+    but the metric sums, within SUM_LEAF_ULP), and figs 18-20's virtual
     numbers against the reference's (``WORKLOAD_REFERENCE``, to the last
     digit). Then the same graphed with
     the kernel flags on (counts reset just before, read just after):
@@ -1535,7 +1608,8 @@ def phase_workloads(dev, card):
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         _, walls = timed_runs(lambda: runner(state), 3)
-        prof = profiled_window(lambda: runner(state), rounds)
+        prof = profiled_rounds(cfg, ssd, wl, plat, state, runner, rounds,
+                               dev)
         card_np = convert.engine_state_to_numpy(out)
         cpu_np = convert.engine_state_to_numpy(engine.simulate(
             cfg, ssd, wl, plat, rounds=rounds, device="cpu"))
@@ -1557,6 +1631,7 @@ def phase_workloads(dev, card):
         wall_ms = statistics.median(walls) * 1e3 / rounds
         rec = {"cell": name, "rounds": rounds, "io_depth": wl.io_depth,
                **numbers, "wall_ms_per_round": wall_ms,
+               "profiled_rounds": min(rounds, PROFILE_ROUNDS),
                "first_call_s_with_capture": first_s,
                **profile_summary(wall_ms, prof),
                "card_vs_cpu_violations": vs_cpu,
@@ -2059,10 +2134,23 @@ CACHE_ARRAY_SETS = 1024      # the array row and the kernel-flags row
 CACHE_SEARCH_SETS = 256      # the vector search's cache: 1024 of 4096 blocks
 
 
+def profiled_rounds(cfg, ssd, wl, plat, state, runner, rounds, dev):
+    """``profiled_window`` over the first ``PROFILE_ROUNDS`` rounds of a
+    run from ``state``: ``runner`` itself where the run is no longer,
+    else a graphed runner of that many rounds."""
+    from repro_torch.core import engine
+
+    n = min(rounds, PROFILE_ROUNDS)
+    if n < rounds:
+        runner = engine.make_runner(cfg, ssd, wl, plat, n, device=dev)
+    return profiled_window(lambda: runner(state), n)
+
+
 def graphed_run(cfg, ssd, wl, rounds, dev, reps=2):
     """``rounds`` rounds of one drive through ``make_runner`` on the card
-    (the first call captures), timed ``reps`` times and profiled once.
-    Returns (final state, record, the graph's kernel launches a round)."""
+    (the first call captures), timed ``reps`` times, and its first
+    ``PROFILE_ROUNDS`` rounds profiled once. Returns (final state, record,
+    the graph's kernel launches a round)."""
     from repro_torch.core import engine
     from repro_torch.core.types import PlatformModel
 
@@ -2073,7 +2161,8 @@ def graphed_run(cfg, ssd, wl, rounds, dev, reps=2):
     runner(state)
     first_s = time.perf_counter() - t0
     out, walls = timed_runs(lambda: runner(state), reps)
-    prof = profiled_window(lambda: runner(state), rounds)
+    prof = profiled_rounds(cfg, ssd, wl, PlatformModel(), state, runner,
+                           rounds, dev)
     wall_ms = statistics.median(walls) * 1e3 / rounds
     return out, {"rounds": rounds, "wall_ms_per_round": wall_ms,
                  "wall_s_runs": walls, "first_call_s_with_capture": first_s,
@@ -3666,6 +3755,8 @@ def phase_serve_long(dev, card, batch=8, prompt=4096, gen=128,
     emit({"phase": "serve_long", "card": card, "arch": cfg.name,
           "batch": batch, "prompt": prompt, "gen": gen,
           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+          "graph_device_ms_per_step": graph_prof["device_ms_per_round"],
+          "graph_wall_ms_per_step": graph_wall * 1e3 / (gen - 2),
           "graph": per_step(graph_wall * 1e3 / (gen - 2), graph_prof),
           "eager": per_step(eager_wall * 1e3 / (gen - 1), eager_prof),
           "graph_vs_eager": graph_vs_eager,
@@ -3687,6 +3778,542 @@ def phase_serve_long(dev, card, batch=8, prompt=4096, gen=128,
     del params, out, again, caches, step
     torch.cuda.empty_cache()
     return launches
+
+
+# -- phase: every architecture on the serving path ---------------------------
+
+# The reference's kv_tier.decode_tokens_per_s at the serve command's
+# settings for the two architectures served through it (KVTierConfig(
+# hot_window=16, page_tokens=8); SSDConfig(t_max_iops=2.5e6,
+# n_instances=64, num_blocks=1<<14); EngineConfig(num_units=4,
+# fetch_width=64); 16 steps): recurrentgemma-9b at the defaults (batch 4,
+# prompt 32), qwen2-moe-a2.7b at --batch 1 --prompt 24. A step submits
+# 2·b·pages·layers·blocks ops (every read and write slot, valid or not);
+# qwen2-moe's 128 blocks a page over 24 layers fit the 32768-entry rings
+# only at b·pages <= 5, and prompt 32 + 16 tokens is 6 pages. Run with the
+# JAX package on a CPU. Virtual time.
+ARCH_TIER_REFERENCE = {
+    "recurrentgemma-9b": {
+        "tokens_per_s": 948.0161500661425,
+        "avg_step_us": 4219.33740234375,
+        "iops_demand": 1513033.7755055635,
+    },
+    "qwen2-moe-a2.7b": {
+        "tokens_per_s": 238.38102040113193,
+        "avg_step_us": 4194.96484375,
+        "iops_demand": 1189998.0538424505,
+    },
+}
+# (arch, batch, prompt, layers kept or None for all, served through
+# launch.serve).
+# qwen3-moe-30b-a3b's 48 layers are 61 GB of bf16 weights and qwen2-vl-72b's
+# 80 are 145 GB: both keep every width, expert count and top-k, and run 8
+# and 2 layers.
+SERVE_ARCHS = (
+    ("recurrentgemma-9b", 4, 32, None, True),
+    ("qwen2-moe-a2.7b", 1, 24, None, True),
+    ("xlstm-1.3b", 4, 32, None, False),
+    ("musicgen-large", 4, 32, None, False),
+    ("qwen3-moe-30b-a3b", 4, 32, 8, False),
+    ("qwen2-vl-72b", 4, 32, 2, False),
+)
+VL_IMAGE_TOKENS = 8          # qwen2-vl's prompt: 8 image tokens of the 32
+# The card's plain path against the port on the CPU at each SMOKE config
+# (float32, TF32 off): the same products summed in another order, so the
+# logits agree to 1e-5 of their largest magnitude (they are O(1)).
+ARCH_CPU_REL = 1e-5
+
+
+def arch_setup(arch, batch, prompt, depth, dev):
+    """``launch.serve.setup``'s objects at full width (16 tokens, 2.5e6
+    IOPS), with ``depth`` layers where the depth is cut (the same
+    seeds)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    if depth is None:
+        return serve.setup(arch, batch=batch, prompt=prompt, device=str(dev))
+    _, _, _, ssd, scfg = serve.setup(arch, smoke=True, batch=batch,
+                                     prompt=prompt, device=str(dev))
+    cfg = configs.get_config(arch).replace(n_layers=depth)
+    params = transformer.init_model(
+        torch.Generator(device=dev).manual_seed(serve.PARAM_SEED), cfg)
+    tokens = torch.randint(
+        0, cfg.vocab, (batch, scfg.prompt_len), dtype=torch.int32,
+        device=dev,
+        generator=torch.Generator(device=dev).manual_seed(serve.TOKEN_SEED))
+    return cfg, params, tokens, ssd, scfg
+
+
+def prompt_inputs(cfg, tokens, dev):
+    """prefill's keyword inputs: the token ids, or for the vision model
+    ``vision_patch_embeddings`` (8 image tokens of the prompt) and their
+    M-RoPE ids."""
+    import torch
+
+    from repro_torch.models import modality
+
+    if cfg.modality != "vision":
+        return {"tokens": tokens}
+    b, s = tokens.shape
+    emb, mrope = modality.vision_patch_embeddings(
+        torch.Generator(device=dev).manual_seed(2), cfg, b, s,
+        VL_IMAGE_TOKENS)
+    return {"embeds": emb, "mrope_positions": mrope}
+
+
+def logit_agreement(got, want):
+    """(max |got - want| over max |got|, cosine) of two logits tensors."""
+    import torch
+
+    rel = float((got - want).abs().max() / got.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(
+        got.reshape(1, -1).double(), want.reshape(1, -1).double()))
+    return rel, cos
+
+
+def arch_card_vs_cpu(arch, dev):
+    """The SMOKE config's prefill (a frontend's embeddings where the model
+    has one) and two decode steps, plain path, on the card and on the
+    CPU from the same parameters: the worst max |diff| over max |logits|,
+    and whether both runs took the same greedy tokens."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import modality, transformer
+
+    cfg = configs.get_config(arch, smoke=True)
+    b, s = 2, 16
+    cpu = torch.device("cpu")
+    params = transformer.init_model(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    inputs = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                      dtype=torch.int32)}
+    if cfg.modality == "audio":
+        inputs = {"embeds": modality.audio_frame_embeddings(gen, cfg, b, s)}
+    elif cfg.modality == "vision":
+        emb, mrope = modality.vision_patch_embeddings(gen, cfg, b, s)
+        inputs = {"embeds": emb, "mrope_positions": mrope}
+    runs = {}
+    for where in (cpu, dev):
+        p = tree_to(params, where)
+        logits, caches = transformer.prefill(
+            p, cfg, cache_len=s + 2,
+            **{k: v.to(where) for k, v in inputs.items()})
+        out = [logits]
+        for i in range(2):
+            tok = torch.argmax(out[-1], dim=-1).to(torch.int32)
+            logits, caches = transformer.decode_step(p, cfg, tok, caches,
+                                                     s + i)
+            out.append(logits)
+        runs[where.type] = [x.cpu() for x in out]
+    worst = max(float((c - g).abs().max() / c.abs().max())
+                for c, g in zip(runs["cpu"], runs["cuda"]))
+    same_tokens = all(bool(torch.equal(c.argmax(-1), g.argmax(-1)))
+                      for c, g in zip(runs["cpu"], runs["cuda"]))
+    return worst, same_tokens
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def tree_float_(tree) -> None:
+    """Every tensor of a parameter tree (held in dicts) made float32 in
+    place, one leaf at a time."""
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, tuple)):
+            tree_float_(v)
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if not isinstance(v, (dict, tuple)):
+                tree[k] = v.float()
+
+
+def teacher_forced(cfg, params, tokens, inputs, s, gen, dev, profile):
+    """From a kernel prefill of the prompt: ``gen - 1`` graphed decode
+    steps; the eager loop of ``decode_step`` on the same tokens from a
+    second prefill (logits bit for bit); with ``profile`` the graphed
+    step's wall and device ms and its one graph launch; then the plain
+    full-sequence ``forward`` + ``logits_fn`` over the same tokens (for the
+    vision model the prompt's embeddings and M-RoPE ids, then the tokens'
+    embeddings at positions on all three streams, as ``decode_step``
+    feeds them). Returns (record, its agreement part, the decoded
+    tokens)."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.serving import loop as serve_loop
+
+    b = tokens.shape[0]
+    cache_len = s + gen
+    with torch.no_grad():
+        logits, caches = transformer.prefill(params, cfg,
+                                             cache_len=cache_len, **inputs)
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        step = serve_loop.DecodeStep(cfg, params, caches, b, cache_len, dev)
+        step.start(first, s)
+        graphed = [logits]
+        for _ in range(gen - 1):
+            step()
+            graphed.append(step.logits.clone())
+        toks = step.tokens[:, s:].clone()
+
+        eager = eager_decode(cfg, params, inputs, toks, s, gen, dev)
+        same = [bitwise_equal(x, y) for x, y in zip(graphed, eager)]
+        eager_tokens = torch.stack([x.argmax(-1) for x in eager], 1)
+
+        rec = {"dtype": cfg.dtype, "capacity_factor": cfg.capacity_factor}
+        if profile:
+            step.start(first, s)
+            prof = profiled_window(
+                lambda: [step() for _ in range(gen - 2)], gen - 2)
+            step.start(first, s)
+            rec["graphed_step"] = {
+                "wall_ms": prof["wall_ms_per_round"],
+                "device_ms": prof["device_ms_per_round"],
+                "device_events": prof["device_events_per_round"],
+                "device_idle_share": prof["device_idle_share"],
+                "host_calls": graph_proof(step)}
+        del step, caches
+        want, aux = plain_logits(cfg, params, tokens, inputs, toks, s, gen,
+                                 dev)
+    checked = agreement(graphed, want)
+    rec.update(checked)
+    rec["graph_vs_eager"] = {
+        "logits_bit_identical_steps": sum(same), "steps": len(same),
+        "tokens_equal": bool(torch.equal(eager_tokens.to(torch.int32),
+                                         toks))}
+    rec["no_nan"] = all(bool(torch.isfinite(x).all())
+                        for x in graphed + eager + [want, aux])
+    return rec, checked, toks
+
+
+def eager_decode(cfg, params, inputs, toks, s, gen, dev):
+    """A prefill of the prompt, then ``gen - 1`` eager ``decode_step``s
+    fed ``toks``: the logits of each (prefill's first)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    cache_len = s + gen
+    logits, caches = transformer.prefill(params, cfg, cache_len=cache_len,
+                                         **inputs)
+    out = [logits]
+    positions = torch.arange(cache_len, dtype=torch.int32, device=dev)
+    for i in range(gen - 1):
+        lg, _ = transformer.decode_step(params, cfg, toks[:, i], caches,
+                                        positions[s + i])
+        out.append(lg)
+    return out
+
+
+def plain_logits(cfg, params, tokens, inputs, toks, s, gen, dev):
+    """The plain full-sequence ``forward`` + ``logits_fn`` over the prompt
+    and ``toks[:, :-1]`` (for the vision model the prompt's embeddings and
+    M-RoPE ids, then the tokens' embeddings at positions on all three
+    streams, as ``decode_step`` feeds them): (logits at the prompt's last
+    position and after, aux loss)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    b = tokens.shape[0]
+    plain = cfg.replace(use_pallas=False)
+    if "embeds" in inputs:
+        emb = torch.cat([inputs["embeds"],
+                         params["embed"][toks[:, :-1].long()]], dim=1)
+        tail = (s + torch.arange(gen - 1, dtype=torch.int32,
+                                 device=dev)).expand(3, b, gen - 1)
+        mrope = torch.cat([inputs["mrope_positions"], tail], dim=2)
+        h, aux = transformer.forward(params, plain, embeds=emb,
+                                     mrope_positions=mrope)
+    else:
+        h, aux = transformer.forward(
+            params, plain, torch.cat([tokens, toks[:, :-1]], dim=1))
+    return transformer.logits_fn(params, plain, h[:, s - 1:]), aux
+
+
+def agreement(steps, want):
+    """The worst ``logit_agreement`` of each step's logits with the plain
+    forward's at its position, and the prefill's."""
+    agree = [logit_agreement(g, want[:, i]) for i, g in enumerate(steps)]
+    return {"worst_max_abs_over_max_logit": max(r for r, _ in agree),
+            "worst_cosine": min(c for _, c in agree),
+            "prefill_step": agree[0]}
+
+
+def moe_routing(cfg, params, tokens, inputs, toks, s, gen, dev):
+    """Where a MoE model's kernel path and its plain path route apart, in
+    the model's own dtype. The plain forward records each MoE layer's
+    router probabilities and top-k experts (``moe.route``); the kernel
+    path (prefill, then ``eager_decode`` fed the same tokens) runs once on
+    its own routing and once with the plain path's experts forced on it
+    (weighted by its own router's probabilities of them). For each run
+    and MoE layer, over the prefill and over the decode steps: the top-k
+    choices of its own router that differ from the plain path's, the gap
+    between the plain path's k-th and (k+1)-th probabilities where they
+    differ and its median over every token, and the largest change of a
+    probability. Returns (record, the forced run's agreement with the
+    plain forward)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    k = cfg.top_k
+    route = moe.route
+    plain = []
+
+    def record(params_, xt, cfg_, t_for_cap):
+        r = route(params_, xt, cfg_, t_for_cap)
+        plain.append((r["probs"], r["top_e"]))
+        return r
+
+    moe.route = record
+    try:
+        with torch.no_grad():
+            want, _ = plain_logits(cfg, params, tokens, inputs, toks, s, gen,
+                                   dev)
+    finally:
+        moe.route = route
+    n_moe, b = len(plain), tokens.shape[0]
+    plain = [(p.reshape(b, s + gen - 1, -1), e.reshape(b, s + gen - 1, k))
+             for p, e in plain]
+
+    def run(force):
+        calls, seen = [0], [[[] for _ in range(n_moe)] for _ in range(2)]
+
+        def routed(params_, xt, cfg_, t_for_cap):
+            r = route(params_, xt, cfg_, t_for_cap)
+            layer, step = calls[0] % n_moe, calls[0] // n_moe
+            calls[0] += 1
+            pos = slice(0, s) if step == 0 else slice(s + step - 1,
+                                                      s + step)
+            probs, top_e = (x[:, pos].reshape(xt.shape[0], -1)
+                            for x in plain[layer])
+            hit = (r["top_e"][:, :, None] == top_e[:, None, :]).any(-1)
+            srt = torch.sort(probs, dim=-1, descending=True).values
+            seen[step > 0][layer].append(torch.stack([
+                (~hit).sum(-1).to(probs.dtype), srt[:, k - 1] - srt[:, k],
+                (r["probs"] - probs).abs().max(-1).values], 1))
+            if force:
+                e_flat = top_e.reshape(-1).to(torch.int32)
+                rank = moe.segment_rank(e_flat)
+                keep = rank < r["cap"]
+                top_p = torch.gather(r["probs"], 1, top_e)
+                r.update(top_e=top_e, rank=rank, keep=keep,
+                         top_p=top_p / top_p.sum(-1, keepdim=True),
+                         slot=torch.where(keep, e_flat * r["cap"] + rank,
+                                          cfg.n_experts * r["cap"]).long())
+            return r
+
+        moe.route = routed
+        try:
+            with torch.no_grad():
+                got = eager_decode(cfg, params, inputs, toks, s, gen, dev)
+        finally:
+            moe.route = route
+        check(calls[0] == n_moe * gen, f"MoE layers routed {calls[0]} "
+                                       f"times, not {n_moe} x {gen}")
+        out = {}
+        for name, layers in zip(("prefill", "decode"), seen):
+            rows = []
+            for x in layers:
+                x = torch.cat(x)
+                miss = x[:, 0] > 0
+                rows.append({
+                    "choices_differing": int(x[:, 0].sum()),
+                    "max_gap_where_differing":
+                        float(x[miss, 1].max()) if miss.any() else None,
+                    "median_gap": float(x[:, 1].median()),
+                    "max_prob_change": float(x[:, 2].max())})
+            out[name] = rows
+        return {**agreement(got, want), "per_moe_layer": out}
+
+    own, forced = run(False), run(True)
+    return {"own_routing": own, "plain_routing_forced": forced}, {
+        k: forced[k] for k in ("worst_max_abs_over_max_logit",
+                               "worst_cosine", "prefill_step")}
+
+
+def serve_arch(arch, batch, prompt, depth, via_serve, dev):
+    """One architecture on the card; returns (record, launches of its main
+    run). The main run, kernels on, is ``serve_with_kv_tier``
+    (``via_serve``: the tier held to ``ARCH_TIER_REFERENCE``) or
+    ``generate`` (for the vision model its prefill from patch embeddings
+    and its graphed ``DecodeStep``). Then ``teacher_forced`` at a config
+    that drops no token (a MoE model's capacity raised to cover every
+    token, so that prefill + decode and one forward route alike; the
+    served decode steps drop none at B tokens either), held to the
+    ``serve_long`` bound in bf16; for a MoE model instead ``moe_routing``
+    in bf16, the bound held with the plain path's routing forced, and
+    ``teacher_forced`` on a float32 copy of the weights, held to it too;
+    then the SMOKE config on the card against the CPU."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import loop as serve_loop
+
+    t_arch = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params, tokens, ssd, scfg = arch_setup(arch, batch, prompt, depth,
+                                                dev)
+    kcfg = cfg.replace(use_pallas=True)
+    s, gen = scfg.prompt_len, scfg.gen_tokens
+    cache_len = s + gen
+    inputs = prompt_inputs(cfg, tokens, dev)
+    torch.cuda.synchronize()
+    # A decode step reads every weight once (a MoE step every expert: the
+    # reference's dispatch runs all E on their capacity rows), but of an
+    # untied embedding only the B tokens' rows.
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in tree_leaves(params))
+    if not cfg.tie_embeddings:
+        weight_bytes -= params["embed"].numel() * params["embed"].element_size()
+    rec = {"arch": arch, "batch": batch, "prompt": s, "gen": gen,
+           "layers": cfg.n_layers, "layers_cut": depth is not None,
+           "params": sum(x.numel() for x in tree_leaves(params)),
+           "step_weight_bytes": weight_bytes,
+           "step_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "setup_s": time.perf_counter() - t_arch}
+
+    ops.reset_launches()
+    if via_serve:
+        out = serve_loop.serve_with_kv_tier(kcfg, params, tokens, scfg, ssd)
+        rel = {k: abs(out[k] - v) / v
+               for k, v in ARCH_TIER_REFERENCE[arch].items()}
+        check(out["data_check_max_abs"] == 0.0, f"{arch}: tier data check")
+        check(all(r <= TIER_REL_TOL for r in rel.values()),
+              f"{arch}: tier off the reference: {rel}")
+        rec["tier"] = {k: out[k] for k in (
+            "tokens_per_s", "avg_step_us", "avg_storage_us",
+            "blocks_per_step", "iops_demand", "data_check_max_abs")}
+        rec["tier_rel_to_reference"] = rel
+    elif "tokens" in inputs:
+        out = serve_loop.generate(kcfg, params, tokens, scfg)
+    else:
+        # generate's prefill and graphed decode, the prompt embedded.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = transformer.prefill(params, kcfg,
+                                             cache_len=cache_len, **inputs)
+        step = serve_loop.DecodeStep(kcfg, params, caches, batch,
+                                     cache_len, dev)
+        step.start(torch.argmax(logits, dim=-1).to(torch.int32), s)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(gen - 1):
+            step()
+        torch.cuda.synchronize()
+        out = {"tokens": step.tokens[:, s:].clone(), "prefill_s": t1 - t0,
+               "wall_s": time.perf_counter() - t1}
+        del step, caches, logits
+    launches = dict(ops.LAUNCHES)
+    main_tokens = out["tokens"]
+    rec["prefill_ms"] = out["prefill_s"] * 1e3
+    # generate's decode wall: its first step runs eagerly and captures.
+    rec["decode_wall_ms_per_step"] = out["wall_s"] * 1e3 / (gen - 1)
+    check(main_tokens.shape == (batch, gen)
+          and bool(((main_tokens >= 0) & (main_tokens < cfg.vocab)).all()),
+          f"{arch}: tokens {tuple(main_tokens.shape)} out of range")
+    n_attn = sum(k in ("attn", "attn_local") for k in
+                 cfg.pattern * cfg.n_periods + cfg.remainder)
+    check(launches["flash_attention"] == n_attn
+          and launches["decode_attention"] == n_attn * (gen - 1),
+          f"{arch}: launches {launches}, {n_attn} attention layers")
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+
+    # Teacher forcing at a config that drops no token.
+    tf_cfg = kcfg
+    if cfg.n_experts:
+        tf_cfg = kcfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    tf, checked, toks = teacher_forced(tf_cfg, params, tokens, inputs, s,
+                                       gen, dev, profile=True)
+    rec["graphed_step"] = tf.pop("graphed_step")
+    rec["teacher_forced"] = tf
+    bounded = {"teacher_forced": checked}
+    if cfg.n_experts:
+        # In bf16 the kernel and the plain attention round differently,
+        # and a random router's near-tied top-k choices may flip on that
+        # difference (each flip moves a token by a whole expert's
+        # output): ``moe_routing`` records where, and the bound is held
+        # with the plain path's experts forced on the kernel path, and on
+        # a float32 copy of the same weights, kernels and graphs as in
+        # bf16.
+        rec["routing"], forced = moe_routing(tf_cfg, params, tokens, inputs,
+                                             toks, s, gen, dev)
+        del inputs
+        tree_float_(params)
+        tf32, checked32, _ = teacher_forced(
+            tf_cfg.replace(dtype="float32"), params, tokens,
+            prompt_inputs(cfg, tokens, dev), s, gen, dev, profile=False)
+        rec["teacher_forced_float32"] = tf32
+        bounded = {"bf16 with the plain path's routing forced": forced,
+                   "float32": checked32}
+    rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del params, tokens
+    torch.cuda.empty_cache()
+    worst, same_tokens = arch_card_vs_cpu(arch, dev)
+    rec["smoke_card_vs_cpu"] = {"worst_max_abs_over_max_logit": worst,
+                                "same_tokens": same_tokens,
+                                "bound": ARCH_CPU_REL}
+    rec["arch_s"] = time.perf_counter() - t_arch
+    for name in ("teacher_forced", "teacher_forced_float32"):
+        got = rec.get(name)
+        if got is None:
+            continue
+        check(got["no_nan"], f"{arch}: a logit or the aux loss is not finite")
+        check(got["graph_vs_eager"]["logits_bit_identical_steps"]
+              == got["graph_vs_eager"]["steps"]
+              and got["graph_vs_eager"]["tokens_equal"],
+              f"{arch}: graphed and eager decode differ ({name}): "
+              f"{got['graph_vs_eager']}")
+    for name, got in bounded.items():
+        check(got["worst_max_abs_over_max_logit"] <= LOGIT_REL_BOUND
+              and got["worst_cosine"] >= LOGIT_MIN_COSINE,
+              f"{arch}: kernel decode and plain forward disagree ({name}): "
+              f"{got}")
+    check(worst <= ARCH_CPU_REL and same_tokens,
+          f"{arch}: card and CPU disagree at SMOKE size: {worst}")
+    return rec, launches
+
+
+def phase_serve_archs(dev, card):
+    """Every architecture the reference serves, through prefill and the
+    graphed decode step with the attention kernels on, one at a time (the
+    weights freed between them): ``SERVE_ARCHS``."""
+    import torch
+
+    recs, total = [], {}
+    for arch, batch, prompt, depth, via_serve in SERVE_ARCHS:
+        rec, launches = serve_arch(arch, batch, prompt, depth, via_serve,
+                                   dev)
+        recs.append(rec)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_archs", "card": card, "archs": recs,
+          "bound": {"max_abs_over_max_logit": LOGIT_REL_BOUND,
+                    "min_cosine": LOGIT_MIN_COSINE,
+                    "smoke_card_vs_cpu": ARCH_CPU_REL}})
+    return total
 
 
 # -- main ---------------------------------------------------------------------
@@ -3721,6 +4348,7 @@ def main() -> int:
 
     smi = nvidia_smi()
     card = smi
+    PHASE_START[0] = time.perf_counter()
     build_s = build.build_all()
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln]
              for k, v in build.BUILD_LOG.items()}
@@ -3728,22 +4356,22 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "build_s": build_s, "ptxas": ptxas})
 
-    timing = phase_kernels(dev, card)
+    timing = run_phase(phase_kernels, dev, card)
     phase_launch_floor(card)
     launches = dict.fromkeys(build.KERNELS, 0)
-    read = phase_main_read(dev, card)
-    for rec in (read, phase_main_mixed(dev, card),
-                phase_main_baseline(dev, card, read)):
+    read = run_phase(phase_main_read, dev, card)
+    for rec in (read, run_phase(phase_main_mixed, dev, card),
+                run_phase(phase_main_baseline, dev, card, read)):
         for k, v in rec["launches"].items():
             launches[k] += v
-    phase_exact(dev, card)
-    phase_cpu_vs_card(dev, card)
-    for counts in (phase_vector_search(dev, card), phase_workloads(dev, card),
-                   phase_array(dev, card), phase_cache(dev, card),
-                   phase_qp(dev, card), phase_fabric(dev, card, read),
-                   phase_figures(dev, card), phase_variants(dev, card),
-                   phase_serve_tier(dev, card), phase_serve_long(dev, card)):
-        for k, v in counts.items():
+    run_phase(phase_exact, dev, card)
+    run_phase(phase_cpu_vs_card, dev, card)
+    for fn, *args in ((phase_vector_search,), (phase_workloads,),
+                      (phase_array,), (phase_cache,), (phase_qp,),
+                      (phase_fabric, read), (phase_figures,),
+                      (phase_variants,), (phase_serve_tier,),
+                      (phase_serve_long,), (phase_serve_archs,)):
+        for k, v in run_phase(fn, dev, card, *args).items():
             launches[k] += v
 
     kernels = []

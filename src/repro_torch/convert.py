@@ -138,27 +138,35 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+# Leaves that stay float32 in a model of any dtype, as the reference's
+# initializers make them: the MoE router and shared-expert gate, RG-LRU's
+# Λ, and the sLSTM/mLSTM gate biases and sLSTM's recurrent weights.
+FLOAT32_LEAVES = ("router", "shared_gate", "lambda_", "b_if", "b_in",
+                  "w_rec")
+
+
 def model_params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
     """The port's parameters on ``device`` from the reference's
     ``transformer.init_model`` tree with numpy leaves (same keys, same
-    stacking per pattern member, same layouts). Raises ``ValueError``
-    when the tree does not fit ``cfg``."""
+    stacking per pattern member, same layouts). Every leaf has the
+    config's dtype but those named in ``FLOAT32_LEAVES``, which are
+    float32. Raises ``ValueError`` when the tree does not fit ``cfg``."""
     if len(tree["periods"]) != len(cfg.pattern) or len(
         tree["remainder"]
     ) != len(cfg.remainder):
         raise ValueError(f"parameter tree does not match {cfg.name}'s "
                          "layer pattern")
-    want = cfg.dtype
 
-    def conv(node, stacked: bool):
+    def conv(node, stacked: bool, name: str = ""):
         if isinstance(node, dict):
-            return {k: conv(v, stacked) for k, v in node.items()}
+            return {k: conv(v, stacked, k) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return tuple(conv(v, stacked) for v in node)
         a = np.asarray(node)
+        want = "float32" if name in FLOAT32_LEAVES else cfg.dtype
         if a.dtype.name != want:
-            raise ValueError(f"leaf of dtype {a.dtype.name}, config says "
-                             f"{want}")
+            raise ValueError(f"leaf {name or '?'} of dtype {a.dtype.name}, "
+                             f"want {want}")
         if stacked and a.shape[0] != cfg.n_periods:
             raise ValueError(f"stacked leaf {a.shape} lacks the "
                              f"{cfg.n_periods} periods")

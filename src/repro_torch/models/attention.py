@@ -9,7 +9,7 @@ tensors); without it, prefill runs the chunked plain-PyTorch
 holds whole tensors, so the reference's sharding constraints are the
 identity here; its tensor- and sequence-parallel attention
 (``_sharded_flash``'s mesh branch, ``_megatron_attention``) waits for
-ROADMAP A19, and M-RoPE for the modality slice (A18).
+ROADMAP A19.
 """
 from __future__ import annotations
 
@@ -52,7 +52,8 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
-def _project_qkv(params, x, cfg: ModelConfig, positions):
+def _project_qkv(params, x, cfg: ModelConfig, positions,
+                 mrope_positions=None):
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = x @ params["wq"]
@@ -70,9 +71,10 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     elif cfg.rope == "mrope":
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP A18, modality slice)"
-        )
+        q = layers.apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                               cfg.rope_theta)
+        k = layers.apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                               cfg.rope_theta)
     return q, k, v
 
 
@@ -110,21 +112,22 @@ def attention_apply(
     cfg: ModelConfig,
     kind: str,
     positions: torch.Tensor,  # (B, S)
+    mrope_positions: "torch.Tensor | None" = None,  # (3, B, S)
 ) -> torch.Tensor:
     """Training / prefill self-attention. Returns (B, S, D)."""
     window, scale = _window_scale(cfg, kind)
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, mrope_positions)
     return _out_proj(params, _flash_core(q, k, v, cfg, window, scale), cfg)
 
 
 def attention_prefill(
     params, x, cfg: ModelConfig, kind, positions,
-    cache_len: "int | None" = None,
+    cache_len: "int | None" = None, mrope_positions=None,
 ):
     """Prefill: as ``attention_apply``, and also the (k, v) cache, zero
     padded along the sequence to ``cache_len``."""
     window, scale = _window_scale(cfg, kind)
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, mrope_positions)
     y = _out_proj(params, _flash_core(q, k, v, cfg, window, scale), cfg)
     s = x.shape[1]
     if cache_len is not None and cache_len > s:
@@ -148,6 +151,7 @@ def attention_decode(
     pos: "torch.Tensor | int",                # () i32 current position
     cfg: ModelConfig,
     kind: str,
+    mrope_positions: "torch.Tensor | None" = None,  # (3, B, 1)
 ) -> "tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]":
     """One-token decode. The new k/v row is written into ``cache`` in
     place (the reference returns an updated copy); the same tensors are
@@ -160,7 +164,8 @@ def attention_decode(
     b = x.shape[0]
     pos = as_position(pos, x.device).reshape(1)
     positions = pos.expand(b, 1)
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions,
+                                   mrope_positions)
     k_cache, v_cache = cache
     row = pos.long()
     k_cache.index_copy_(2, row, k_new)

@@ -6,10 +6,11 @@ layouts (``x @ w`` with ``w`` of shape (in, out)), so a reference
 parameter tree carries over one to one (``convert.model_params_from_numpy``).
 Initializers draw from an explicit ``torch.Generator`` on the target
 device; ``stack`` prepends leading axes (the per-pattern-member layer
-stacks of ``transformer.init_model``). M-RoPE waits for the modality
-slice (ROADMAP A18).
+stacks of ``transformer.init_model``).
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -43,17 +44,28 @@ def softcap(x: torch.Tensor, cap: "float | None") -> torch.Tensor:
 # Rotary position embeddings (rotate-half, not interleaved).
 # ---------------------------------------------------------------------------
 
+def _rope_freq(half: int, theta: float, device) -> torch.Tensor:
+    """The (half,) float32 frequencies ``theta ** (-arange(half) / half)``."""
+    exponent = -torch.arange(0, half, dtype=torch.float32,
+                             device=device) / half
+    return torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=device), exponent)
+
+
 def _rope_angles(
     positions: torch.Tensor, d_head: int, theta: float
 ) -> "tuple[torch.Tensor, torch.Tensor]":
     """cos/sin tables for ``positions`` (..., S) -> (..., S, d_head/2)."""
-    half = d_head // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32,
-                             device=positions.device) / half
-    freq = torch.pow(torch.full((), theta, dtype=torch.float32,
-                                device=positions.device), exponent)
+    freq = _rope_freq(d_head // 2, theta, positions.device)
     ang = positions.float()[..., None] * freq
     return torch.cos(ang), torch.sin(ang)
+
+
+def _rotate_half(x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 def apply_rope(
@@ -62,11 +74,32 @@ def apply_rope(
     theta: float = 10000.0,
 ) -> torch.Tensor:
     cos, sin = _rope_angles(positions, x.shape[-1], theta)  # (B, S, D/2)
-    cos = cos[:, None]
-    sin = sin[:, None]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return _rotate_half(x, cos[:, None], sin[:, None])
+
+
+def apply_mrope(
+    x: torch.Tensor,          # (B, H, S, D)
+    positions: torch.Tensor,  # (3, B, S): temporal / height / width streams
+    sections,
+    theta: float = 10000.0,
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the half head-dim is split into
+    ``sections`` (in half-dim units), each rotated by its own position
+    stream."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"the half head-dim {half}")
+    freq = _rope_freq(half, theta, x.device)
+    # Section of each half-dim column, from device ops alone (no host
+    # copy, so a captured decode step may call this).
+    col = torch.arange(half, device=x.device)
+    sec_id = torch.zeros_like(col)
+    for edge in itertools.accumulate(sections[:-1]):
+        sec_id += col >= edge                                   # (half,)
+    pos = positions.float()[sec_id]                             # (half, B, S)
+    ang = pos.movedim(0, -1) * freq                             # (B, S, half)
+    return _rotate_half(x, torch.cos(ang)[:, None], torch.sin(ang)[:, None])
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,17 @@
 """Block assembly, model forward, prefill and decode (port of
-``repro/models/transformer.py``) for the attention blocks (``ATTN``,
-``ATTN_LOCAL``).
+``repro/models/transformer.py``) for every block kind: attention
+(``ATTN``, ``ATTN_LOCAL``, with a dense or a MoE MLP), Griffin's
+``RGLRU`` and xLSTM's ``MLSTM`` and ``SLSTM``, fed token ids or a
+modality frontend's embeddings, with RoPE or M-RoPE positions.
 
 Parameters keep the reference's tree: ``periods`` holds one dict per
 pattern member whose leaves are stacked over the ``n_periods`` periods,
 ``remainder`` the unrolled tail layers. The reference scans over the
 periods; here a Python loop over the period index takes the place of the
-scan. Caches keep the same layout (per pattern member a (k, v) pair
-stacked over periods) and decode writes them in place. MoE, recurrent
-and modality blocks raise ``NotImplementedError`` (ROADMAP A18).
+scan. Caches keep the same layout (per pattern member the block's cache
+tree, every leaf stacked over periods: (k, v) for attention, (conv, h)
+for RG-LRU, (conv, (C, n, m)) for mLSTM, (h, c, n, m) for sLSTM) and
+decode writes them in place.
 """
 from __future__ import annotations
 
@@ -18,8 +21,10 @@ import torch
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
-from repro_torch.models.config import ATTN, ATTN_LOCAL, ModelConfig
+from repro_torch.models import layers, moe, recurrent
+from repro_torch.models.config import (
+    ATTN, ATTN_LOCAL, MLSTM, RGLRU, SLSTM, ModelConfig,
+)
 
 _ATTN_KINDS = (ATTN, ATTN_LOCAL)
 
@@ -28,26 +33,21 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_ported(cfg: ModelConfig, kind: str) -> None:
-    if kind not in _ATTN_KINDS:
-        raise NotImplementedError(
-            f"{kind!r} blocks are not ported yet (ROADMAP A18)"
-        )
-    if cfg.n_experts:
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP A18)")
-    if cfg.modality != "none":
-        raise NotImplementedError(
-            f"the {cfg.modality} frontend is not ported yet (ROADMAP A18)"
-        )
-
-
 def _take(tree, i: int):
-    """Layer ``i`` of a stacked parameter or cache tree."""
+    """Layer ``i`` of a stacked parameter or cache tree (views, so a cache
+    written through them is written in the stack)."""
     if isinstance(tree, dict):
         return {k: _take(v, i) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(_take(v, i) for v in tree)
     return tree[i]
+
+
+def _stack(trees: list):
+    """Leaf-wise ``torch.stack`` of equally shaped cache trees."""
+    if isinstance(trees[0], tuple):
+        return tuple(_stack(list(leaves)) for leaves in zip(*trees))
+    return torch.stack(trees)
 
 
 # ---------------------------------------------------------------------------
@@ -56,74 +56,131 @@ def _take(tree, i: int):
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                stack: tuple = ()) -> dict:
-    _check_ported(cfg, kind)
     dt = _dtype(cfg)
     d = cfg.d_model
-    p = {"norm1": layers.norm_init(cfg.norm, d, dt, gen.device, stack)}
-    p["attn"] = attn.attn_init(gen, cfg, dt, stack)
-    if not cfg.parallel_block:
-        p["norm2"] = layers.norm_init(cfg.norm, d, dt, gen.device, stack)
-    p["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, cfg.mlp_gated, cfg.use_bias,
+    dev = gen.device
+
+    def mlp():
+        return layers.mlp_init(gen, d, cfg.d_ff, cfg.mlp_gated, cfg.use_bias,
                                dt, stack)
-    if cfg.post_norms:
-        p["post1"] = layers.norm_init(cfg.norm, d, dt, gen.device, stack)
-        p["post2"] = layers.norm_init(cfg.norm, d, dt, gen.device, stack)
+
+    p = {"norm1": layers.norm_init(cfg.norm, d, dt, dev, stack)}
+    if kind in _ATTN_KINDS:
+        p["attn"] = attn.attn_init(gen, cfg, dt, stack)
+        if not cfg.parallel_block:
+            p["norm2"] = layers.norm_init(cfg.norm, d, dt, dev, stack)
+        if cfg.n_experts:
+            p["moe"] = moe.moe_init(gen, cfg, dt, stack)
+        else:
+            p["mlp"] = mlp()
+        if cfg.post_norms:
+            p["post1"] = layers.norm_init(cfg.norm, d, dt, dev, stack)
+            p["post2"] = layers.norm_init(cfg.norm, d, dt, dev, stack)
+    elif kind == RGLRU:
+        p["rec"] = recurrent.rglru_init(gen, cfg, dt, stack)
+        p["norm2"] = layers.norm_init(cfg.norm, d, dt, dev, stack)
+        p["mlp"] = mlp()
+    elif kind == MLSTM:
+        p["cell"] = recurrent.mlstm_init(gen, cfg, dt, stack)
+    elif kind == SLSTM:
+        p["cell"] = recurrent.slstm_init(gen, cfg, dt, stack)
+    else:
+        raise ValueError(kind)
     return p
 
 
-def _mlp_branch(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return layers.mlp_apply(p["mlp"], x, cfg.mlp_act, cfg.mlp_gated)
+def _mlp_branch(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """(MLP or MoE output, aux loss)."""
+    if cfg.n_experts:
+        return moe.moe_apply(p["moe"], x, cfg)
+    return layers.mlp_apply(p["mlp"], x, cfg.mlp_act, cfg.mlp_gated), 0.0
 
 
 def _finish(p, x, y, n1, cfg: ModelConfig):
-    """The residual tail shared by apply, prefill and decode: parallel
-    block, or post-norms and the MLP sub-block."""
+    """The residual tail of an attention block, shared by apply, prefill
+    and decode: parallel block, or post-norms and the MLP sub-block.
+    Returns (x', aux)."""
     if cfg.parallel_block:
-        return x + y + _mlp_branch(p, n1, cfg)
+        m, aux = _mlp_branch(p, n1, cfg)
+        return x + y + m, aux
     if cfg.post_norms:
         y = layers.norm_apply(cfg.norm, p["post1"], y)
     x = x + y
     n2 = layers.norm_apply(cfg.norm, p["norm2"], x)
-    m = _mlp_branch(p, n2, cfg)
+    m, aux = _mlp_branch(p, n2, cfg)
     if cfg.post_norms:
         m = layers.norm_apply(cfg.norm, p["post2"], m)
-    return x + m
+    return x + m, aux
 
 
-def block_apply(p: dict, x, cfg: ModelConfig, kind: str, positions):
-    """Plain forward of one block. Returns x'."""
-    _check_ported(cfg, kind)
+def _recurrent(p, x, n1, cfg: ModelConfig, kind: str, state, chunk=256):
+    """A recurrent block's mixer and residual (and RG-LRU's MLP
+    sub-block) from ``state`` (None: zeros). Returns (x', state')."""
+    if kind == RGLRU:
+        y, state = recurrent.rglru_apply(p["rec"], n1, cfg, state)
+        x = x + y
+        n2 = layers.norm_apply(cfg.norm, p["norm2"], x)
+        return x + _mlp_branch(p, n2, cfg)[0], state
+    if kind == MLSTM:
+        y, state = recurrent.mlstm_apply(p["cell"], n1, cfg, state, chunk)
+    elif kind == SLSTM:
+        y, state = recurrent.slstm_apply(p["cell"], n1, cfg, state)
+    else:
+        raise ValueError(kind)
+    return x + y, state
+
+
+def block_apply(p: dict, x, cfg: ModelConfig, kind: str, positions,
+                mrope_positions=None):
+    """Plain forward of one block. Returns (x', aux)."""
     n1 = layers.norm_apply(cfg.norm, p["norm1"], x)
-    y = attn.attention_apply(p["attn"], n1, cfg, kind, positions)
-    return _finish(p, x, y, n1, cfg)
+    if kind in _ATTN_KINDS:
+        y = attn.attention_apply(p["attn"], n1, cfg, kind, positions,
+                                 mrope_positions)
+        return _finish(p, x, y, n1, cfg)
+    return _recurrent(p, x, n1, cfg, kind, None)[0], 0.0
 
 
 def block_init_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                      device, stack: tuple = ()) -> Any:
-    """Zero (k, v) cache, full length for local layers too (in-place
-    position indexing, as the reference)."""
-    _check_ported(cfg, kind)
-    shape = (*stack, batch, cfg.n_kv_heads, cache_len, cfg.d_head)
-    return (torch.zeros(shape, dtype=_dtype(cfg), device=device),
-            torch.zeros(shape, dtype=_dtype(cfg), device=device))
+    """Zero decode state of one block: a (k, v) cache, full length for
+    local layers too (in-place position indexing, as the reference), or
+    a recurrent block's state."""
+    dt = _dtype(cfg)
+    if kind in _ATTN_KINDS:
+        shape = (*stack, batch, cfg.n_kv_heads, cache_len, cfg.d_head)
+        return (torch.zeros(shape, dtype=dt, device=device),
+                torch.zeros(shape, dtype=dt, device=device))
+    init = {RGLRU: recurrent.rglru_init_state,
+            MLSTM: recurrent.mlstm_init_state,
+            SLSTM: recurrent.slstm_init_state}
+    if kind not in init:
+        raise ValueError(kind)
+    return init[kind](cfg, batch, dt, device, stack)
 
 
-def block_prefill(p, x, cfg: ModelConfig, kind, positions, cache_len):
+def block_prefill(p, x, cfg: ModelConfig, kind, positions, cache_len,
+                  mrope_positions=None):
     """Forward + this block's decode cache."""
-    _check_ported(cfg, kind)
     n1 = layers.norm_apply(cfg.norm, p["norm1"], x)
-    y, cache = attn.attention_prefill(p["attn"], n1, cfg, kind, positions,
-                                      cache_len)
-    return _finish(p, x, y, n1, cfg), cache
+    if kind in _ATTN_KINDS:
+        y, cache = attn.attention_prefill(p["attn"], n1, cfg, kind, positions,
+                                          cache_len, mrope_positions)
+        return _finish(p, x, y, n1, cfg)[0], cache
+    state0 = block_init_cache(cfg, kind, x.shape[0], cache_len, x.device)
+    return _recurrent(p, x, n1, cfg, kind, state0)
 
 
-def block_decode(p, x, cache, pos, cfg: ModelConfig, kind):
+def block_decode(p, x, cache, pos, cfg: ModelConfig, kind,
+                 mrope_positions=None):
     """One-token decode step. Returns (x', cache) with ``cache`` written
     in place."""
-    _check_ported(cfg, kind)
     n1 = layers.norm_apply(cfg.norm, p["norm1"], x)
-    y, cache = attn.attention_decode(p["attn"], n1, cache, pos, cfg, kind)
-    return _finish(p, x, y, n1, cfg), cache
+    if kind in _ATTN_KINDS:
+        y, cache = attn.attention_decode(p["attn"], n1, cache, pos, cfg, kind,
+                                         mrope_positions)
+        return _finish(p, x, y, n1, cfg)[0], cache
+    return _recurrent(p, x, n1, cfg, kind, cache, chunk=1)
 
 
 # ---------------------------------------------------------------------------
@@ -134,8 +191,6 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on ``gen.device``, with the reference's scales:
     embedding and untied head N(0, 1/d_model), projections N(0, 1/fan_in),
     norms at identity, biases zero."""
-    for kind in cfg.pattern + cfg.remainder:
-        _check_ported(cfg, kind)
     dt = _dtype(cfg)
     p: dict = {"embed": layers.normal(gen, (cfg.vocab, cfg.d_model),
                                       cfg.d_model ** -0.5, dt)}
@@ -161,8 +216,13 @@ def _layers(p: dict, cfg: ModelConfig):
         yield p["remainder"][j], kind, None, j
 
 
-def _embed_tokens(p, cfg: ModelConfig, tokens):
-    h = p["embed"][tokens.long()]
+def _embed_tokens(p, cfg: ModelConfig, tokens=None, embeds=None):
+    """Token ids through the embedding, or a frontend's (B, S, D) embeds
+    in the model dtype; times sqrt(d_model) where the config says so."""
+    if embeds is None:
+        h = p["embed"][tokens.long()]
+    else:
+        h = embeds.to(_dtype(cfg))
     if cfg.embed_scale_by_dim:
         h = h * torch.full((), cfg.d_model ** 0.5, dtype=h.dtype,
                            device=h.device)
@@ -173,15 +233,30 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def forward(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Backbone forward of (B, S) tokens. Returns the final-normed hidden
-    states (B, S, D). (The reference also returns the MoE aux loss, which
-    is zero for the attention blocks ported here.)"""
-    h = _embed_tokens(p, cfg, tokens)
-    positions = _positions(*h.shape[:2], h.device)
+def _default_mrope(cfg: ModelConfig, positions, mrope_positions):
+    """M-RoPE ids: the given ones, else all three streams at ``positions``
+    (None for a config without M-RoPE)."""
+    if cfg.rope == "mrope" and mrope_positions is None:
+        return positions.expand(3, *positions.shape)
+    return mrope_positions
+
+
+def forward(p: dict, cfg: ModelConfig, tokens=None, embeds=None,
+            positions=None, mrope_positions=None):
+    """Backbone forward of (B, S) token ids or (B, S, D) embeds. Returns
+    (final-normed hidden states (B, S, D), the MoE aux loss)."""
+    h = _embed_tokens(p, cfg, tokens, embeds)
+    b, s = h.shape[:2]
+    if positions is None:
+        positions = _positions(b, s, h.device)
+    mrope_positions = _default_mrope(cfg, positions, mrope_positions)
+    # One running sum (the reference sums per period, then the periods:
+    # the same few float32 terms in another order).
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp, kind, _, _ in _layers(p, cfg):
-        h = block_apply(lp, h, cfg, kind, positions)
-    return layers.norm_apply(cfg.norm, p["final_norm"], h)
+        h, a = block_apply(lp, h, cfg, kind, positions, mrope_positions)
+        aux = aux + a
+    return layers.norm_apply(cfg.norm, p["final_norm"], h), aux
 
 
 def _head_matrix(p, cfg: ModelConfig):
@@ -197,22 +272,22 @@ def logits_fn(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 # Serving: prefill + decode.
 # ---------------------------------------------------------------------------
 
-def prefill(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            cache_len: "int | None" = None):
-    """Run the prompt; returns (last-token logits (B, V), caches)."""
-    h = _embed_tokens(p, cfg, tokens)
+def prefill(p: dict, cfg: ModelConfig, tokens=None, embeds=None,
+            cache_len: "int | None" = None, mrope_positions=None):
+    """Run the prompt (token ids or embeds); returns (last-token logits
+    (B, V), caches)."""
+    h = _embed_tokens(p, cfg, tokens, embeds)
     b, s = h.shape[:2]
     cache_len = cache_len or s
     positions = _positions(b, s, h.device)
+    mrope_positions = _default_mrope(cfg, positions, mrope_positions)
     per_member = [[] for _ in cfg.pattern]
     rem = []
     for lp, kind, i, j in _layers(p, cfg):
-        h, cache = block_prefill(lp, h, cfg, kind, positions, cache_len)
+        h, cache = block_prefill(lp, h, cfg, kind, positions, cache_len,
+                                 mrope_positions)
         (rem if i is None else per_member[j]).append(cache)
-    caches = tuple(
-        (torch.stack([c[0] for c in cs]), torch.stack([c[1] for c in cs]))
-        for cs in per_member
-    )
+    caches = tuple(_stack(cs) for cs in per_member)
     h = layers.norm_apply(cfg.norm, p["final_norm"], h)
     logits = logits_fn(p, cfg, h[:, -1:])
     return logits[:, 0], (caches, tuple(rem))
@@ -233,18 +308,25 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
     return period, rem
 
 
-def decode_step(p: dict, cfg: ModelConfig, token: torch.Tensor, caches,
-                pos: "torch.Tensor | int"):
-    """One decode step of (B,) tokens at position ``pos``, a () int32
-    tensor on the tokens' device (a host integer is made into one).
-    Returns (logits (B, V), caches), the caches written in place. Nothing
-    in it reads a value back to the host, so ``serving/loop.py`` captures
-    it into a CUDA graph."""
-    pos = attn.as_position(pos, token.device)
-    h = _embed_tokens(p, cfg, token)[:, None, :]
+def decode_step(p: dict, cfg: ModelConfig, token, caches,
+                pos: "torch.Tensor | int", embeds=None):
+    """One decode step of (B,) tokens (or (B, D) embeds) at position
+    ``pos``, a () int32 tensor on the inputs' device (a host integer is
+    made into one); M-RoPE ids are ``pos`` on all three streams. Returns
+    (logits (B, V), caches), the caches written in place. Nothing in it
+    reads a value back to the host, so ``serving/loop.py`` captures it
+    into a CUDA graph."""
+    if embeds is None:
+        h = _embed_tokens(p, cfg, token)[:, None, :]
+    else:
+        h = _embed_tokens(p, cfg, embeds=embeds[:, None, :])
+    pos = attn.as_position(pos, h.device)
+    b = h.shape[0]
+    mrope = (pos.to(torch.int32).expand(3, b, 1)
+             if cfg.rope == "mrope" else None)
     period_caches, rem_caches = caches
     for lp, kind, i, j in _layers(p, cfg):
         cache = rem_caches[j] if i is None else _take(period_caches[j], i)
-        h, _ = block_decode(lp, h, cache, pos, cfg, kind)
+        h, _ = block_decode(lp, h, cache, pos, cfg, kind, mrope)
     h = layers.norm_apply(cfg.norm, p["final_norm"], h)
     return logits_fn(p, cfg, h)[:, 0], caches

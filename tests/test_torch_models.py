@@ -292,7 +292,8 @@ def test_forward_and_logits_match_reference(arch):
     toks = np.random.default_rng(6).integers(0, jcfg.vocab, (2, 64)).astype(
         np.int32)
     h, _ = jtr.forward(jp, jcfg, tokens=jnp.asarray(toks))
-    ht = transformer.forward(tp, tcfg, t(toks))
+    ht, aux = transformer.forward(tp, tcfg, t(toks))
+    assert float(aux) == 0.0
     np.testing.assert_allclose(ht.numpy(), np.asarray(h), **LOGIT_TOL)
     np.testing.assert_allclose(
         transformer.logits_fn(tp, tcfg, ht).numpy(),
@@ -348,9 +349,17 @@ def test_caches_layout_matches_reference():
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "xlstm-1.3b",
                                   "recurrentgemma-9b", "musicgen-large"])
 def test_unported_blocks_raise(arch):
+    """Every block kind of the reference is ported (these configs build;
+    tests/test_torch_archs.py holds them against the reference); a kind
+    that neither package has raises ``ValueError``, as the reference's
+    ``block_init`` does."""
     cfg = configs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        transformer.init_model(torch.Generator().manual_seed(0), cfg)
+    transformer.init_model(torch.Generator().manual_seed(0), cfg)
+    bad = cfg.replace(pattern=("mamba",) + cfg.pattern[1:])
+    with pytest.raises(ValueError, match="mamba"):
+        transformer.init_model(torch.Generator().manual_seed(0), bad)
+    with pytest.raises(ValueError, match="mamba"):
+        transformer.init_caches(bad, 1, 4, "cpu")
 
 
 def test_converter_rejects_a_tree_of_another_model():

@@ -330,6 +330,62 @@ def test_full_width_tier_reproduces_reference_numbers():
     assert runs[0] == runs[1]
 
 
+# The reference's decode_tokens_per_s at the serve command's settings for
+# two more architectures (KVTierConfig(hot_window=16, page_tokens=8), a
+# 2.5e6-IOPS drive of 64 instances and 2^14 blocks, EngineConfig(
+# num_units=4, fetch_width=64), 16 steps): recurrentgemma-9b at the
+# defaults (batch 4, prompt 32; the tier counts its recurrent layers too,
+# as the reference's does) and qwen2-moe-a2.7b at --batch 1 --prompt 24,
+# run on the CPU. Virtual time.
+ARCH_TIER = {
+    "recurrentgemma-9b": (4, 32, {
+        "tokens_per_s": 948.0161500661425,
+        "avg_step_us": 4219.33740234375,
+        "blocks_per_step": 6384.0,
+        "iops_demand": 1513033.7755055635,
+        "data_check_max_abs": 0.0,
+        "hot_pages": 2,
+    }),
+    "qwen2-moe-a2.7b": (1, 24, {
+        "tokens_per_s": 238.38102040113193,
+        "avg_step_us": 4194.96484375,
+        "blocks_per_step": 4992.0,
+        "iops_demand": 1189998.0538424505,
+        "data_check_max_abs": 0.0,
+        "hot_pages": 2,
+    }),
+}
+
+
+@pytest.mark.parametrize("arch", ARCH_TIER)
+def test_full_width_tier_of_other_archs_reproduces_reference(arch):
+    """``launch.serve``'s tier for recurrentgemma-9b and qwen2-moe-a2.7b
+    at full width on the CPU: the reference's numbers."""
+    batch, prompt, want = ARCH_TIER[arch]
+    _, _, _, ssd, scfg = serve.setup(arch, smoke=True, batch=batch,
+                                     prompt=prompt, device="cpu")
+    assert (ssd.t_max_iops, ssd.n_instances) == (2.5e6, 64)
+    got = kv_tier.decode_tokens_per_s(
+        configs.get_config(arch), scfg.tier, ssd,
+        types.EngineConfig(num_units=4, fetch_width=64), batch, prompt, 16,
+        device="cpu")
+    for key, value in want.items():
+        assert got[key] == pytest.approx(value, rel=1e-6, abs=0), key
+
+
+def test_moe_tier_at_the_default_prompt_overflows_the_rings():
+    """qwen2-moe-a2.7b at batch 1 and the default prompt 32 submits
+    2 x 18432 ops a step (every read and write slot), over the 32768 of
+    the rings: a ValueError, as in the reference (ROADMAP, ring limit)."""
+    _, _, _, ssd, scfg = serve.setup("qwen2-moe-a2.7b", smoke=True, batch=1,
+                                     device="cpu")
+    with pytest.raises(ValueError, match="36864 requests exceeds ring"):
+        kv_tier.decode_tokens_per_s(
+            configs.get_config("qwen2-moe-a2.7b"), scfg.tier, ssd,
+            types.EngineConfig(num_units=4, fetch_width=64), 1, 32, 16,
+            device="cpu")
+
+
 def serve_setup_without_model():
     """The objects ``launch/serve.py`` builds for --arch starcoder2-3b
     --iops 40e6, with the full-width model's config but no parameters."""
