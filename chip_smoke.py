@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then
-runs eighteen phases, printing one JSON line each (with the phase's
+runs nineteen phases, printing one JSON line each (with the phase's
 seconds, ``phase_s``):
 
   env              nvidia-smi's card name and power limit, torch/CUDA
@@ -192,6 +192,23 @@ seconds, ``phase_s``):
                    decode bit for bit, no NaN, the graphed step's wall and
                    device ms, and the SMOKE config's plain path on the
                    card against the CPU
+  train            training on the card (``use_pallas=False``, as the
+                   reference trains): flash_vjp's dq/dk/dv against autograd
+                   through the plain attention at starcoder2-3b's and a
+                   gemma2-27b softcap/window attention shape; one train
+                   step of five SMOKE architectures on the card against the
+                   CPU; starcoder2-3b at full width cut to 2 layers
+                   (float32), loss and gradient norm against the CPU; then
+                   starcoder2-3b FULL (30 layers, bf16, remat) at batch 4 x
+                   128 through ``launch.train``'s objects on ``Prefetcher``
+                   batches: a warm-up step, three timed steps and one
+                   profiled (wall and device ms, events, tokens a
+                   wall-second, peak memory), finite losses and norms, the
+                   parameters moved, the step counted; ``train()`` on SMOKE
+                   with an injected crash (one restart, the losses of an
+                   uninterrupted run); and the attention kernels' refusal
+                   of autograd on the card. The path launches none of the
+                   seven kernels
 
 After the kernels phase, one line ``{"launch_floor": ...}`` times an
 empty kernel (``csrc/launch_floor.cu``) through the wrappers' launch path:
@@ -251,12 +268,16 @@ def run_phase(fn, *args):
 def emit(obj) -> None:
     """Print one JSON line; a record of the card's also says how many
     profiler windows since the last such record recorded no device event
-    and were taken again (``PROFILER_TRIES``), and a phase's line the
+    and were taken again (``PROFILER_TRIES``), how many ``device_ms``
+    calls were timed with CUDA events for it and how many device records
+    its kept windows missed, and a phase's line the
     seconds since its phase started (``phase_s``) where it does not time
     itself."""
     if "card" in obj:
-        obj = {**obj, "empty_profiler_windows": EMPTY_WINDOWS[0]}
-        EMPTY_WINDOWS[0] = 0
+        obj = {**obj, "empty_profiler_windows": EMPTY_WINDOWS[0],
+               "event_timed_calls": EVENT_TIMED[0],
+               "dropped_device_records": DROPPED_EVENTS[0]}
+        EMPTY_WINDOWS[0] = EVENT_TIMED[0] = DROPPED_EVENTS[0] = 0
     if "phase" in obj and "phase_s" not in obj:
         obj = {**obj, "phase_s": time.perf_counter() - PHASE_START[0]}
     print(json.dumps(obj), flush=True)
@@ -360,6 +381,54 @@ def close_enough(got, want):
     if got.dtype == torch.bfloat16:
         return bool(((g - w).abs() <= w.abs() * 2.0 ** -7 + 1e-5).all())
     return bool(((g - w).abs() <= 1e-4).all())
+
+
+# -- the port's CPU runs, in worker processes ----------------------------------
+
+# Processes that run the port's eager CPU runs, which the phases hold the
+# card's final states against, while the card works. A run on the CPU
+# gives the same bits at any thread count; one thread a worker keeps the
+# workers off each other's cores.
+CPU_WORKERS = 6
+_CPU_POOL: list = []
+
+
+def _cpu_worker_init(src: str) -> None:
+    sys.path.insert(0, src)
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _cpu_state(cfg, ssd, wl, plat, rounds, num_devices):
+    from repro_torch import convert
+    from repro_torch.core import engine
+
+    return convert.engine_state_to_numpy(engine.simulate(
+        cfg, ssd, wl, plat, rounds=rounds, num_devices=num_devices,
+        device="cpu"))
+
+
+def cpu_state(cfg, ssd, wl, rounds, num_devices=1, plat=None):
+    """A future of the port's eager run on the CPU (``engine.simulate``):
+    its final state as numpy leaves, computed in a worker process."""
+    from repro_torch.core.types import PlatformModel
+
+    if not _CPU_POOL:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        _CPU_POOL.append(ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init, initargs=(str(SRC),)))
+    return _CPU_POOL[0].submit(_cpu_state, cfg, ssd, wl,
+                               plat or PlatformModel(), rounds, num_devices)
+
+
+def stop_cpu_workers() -> None:
+    for pool in _CPU_POOL:
+        pool.shutdown(cancel_futures=True)
+    _CPU_POOL.clear()
 
 
 # -- phase: kernels -----------------------------------------------------------
@@ -784,12 +853,20 @@ def library_fn(name, args):
     return None
 
 
-# A profiler window on the card's machine now and then records no device
-# event at all (one window in the kernels phase of one run); such a
-# window is taken again, up to this many times in all, and counted in
-# EMPTY_WINDOWS, which the next record of the card prints.
+# On the card's machine, in most runs of the script, a profiler window
+# misses the records of some of the kernels it saw launched: mostly the
+# window's first; now and then many or all of them (stream costs of one
+# ~0.001-ms kernel keeping 1 of 20; one window in the kernels phase of one
+# run, three in a row in the workloads phase of another, keeping none).
+# Such an empty window is taken again, up to this many times in all, and
+# counted in EMPTY_WINDOWS; where every window of a call is empty, the
+# call is timed with CUDA events instead and counted in EVENT_TIMED; the
+# records a kept window missed are counted in DROPPED_EVENTS. The next
+# record of the card prints all three.
 PROFILER_TRIES = 3
 EMPTY_WINDOWS = [0]
+EVENT_TIMED = [0]
+DROPPED_EVENTS = [0]
 
 
 def device_ms(fn, reps: int = 20):
@@ -797,10 +874,19 @@ def device_ms(fn, reps: int = 20):
     duration and the number of the kernels (and copies) it launches, from
     one torch.profiler window over ``reps`` calls after a warmup. Unlike
     ``median_ms`` it leaves out the host's launch path, which sets the wall
-    time of a call whose kernels take a few microseconds."""
+    time of a call whose kernels take a few microseconds. Where the window
+    holds fewer device records than host calls that put work on the device
+    (``bench.HOST_LAUNCH_CALLS``), the events are the host's count and the
+    summed duration is scaled by the same ratio (the missed records taken
+    at the mean duration of the kept ones). Where the profiler records no
+    device event in any of its windows, the ms are the CUDA-event time of
+    ``reps`` calls over ``reps``, which counts the device's gaps between
+    launches too, and the events are None (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bench import HOST_LAUNCH_CALLS
 
     fn()
     torch.cuda.synchronize()
@@ -810,14 +896,30 @@ def device_ms(fn, reps: int = 20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev_events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA]
+        rows = prof.key_averages()
+        dev_events = [e for e in rows if e.device_type == DeviceType.CUDA]
         us = sum(getattr(e, "self_device_time_total", 0) for e in dev_events)
         if us > 0:
-            break
+            events = sum(e.count for e in dev_events)
+            host = sum(e.count for e in rows
+                       if e.device_type == DeviceType.CPU
+                       and e.key.startswith(HOST_LAUNCH_CALLS))
+            if host > events:
+                DROPPED_EVENTS[0] += host - events
+                us, events = us * host / events, host
+            return us / reps / 1e3, events / reps
         EMPTY_WINDOWS[0] += 1
-    check(us > 0, "the profiler saw no device time")
-    return us / reps / 1e3, sum(e.count for e in dev_events) / reps
+    EVENT_TIMED[0] += 1
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    check(ms > 0, "neither the profiler nor CUDA events saw device time")
+    return ms, None
 
 
 def profiled_window(fn, n):
@@ -1600,7 +1702,10 @@ def phase_workloads(dev, card):
     plat = PlatformModel()
     bounds = dict.fromkeys(SUM_LEAVES, SUM_LEAF_ULP)
     recs, launches = [], dict.fromkeys(ops.LAUNCHES, 0)
-    for name, cfg, ssd, wl, rounds in workload_cells():
+    cells = workload_cells()
+    cpu_runs = [cpu_state(cfg, ssd, wl, rounds, plat=plat)
+                for _, cfg, ssd, wl, rounds in cells]
+    for (name, cfg, ssd, wl, rounds), cpu in zip(cells, cpu_runs):
         state = engine.init_state(cfg, ssd, wl, device=dev)
         runner = engine.make_runner(cfg, ssd, wl, plat, rounds, device=dev)
         t0 = time.perf_counter()
@@ -1611,9 +1716,7 @@ def phase_workloads(dev, card):
         prof = profiled_rounds(cfg, ssd, wl, plat, state, runner, rounds,
                                dev)
         card_np = convert.engine_state_to_numpy(out)
-        cpu_np = convert.engine_state_to_numpy(engine.simulate(
-            cfg, ssd, wl, plat, rounds=rounds, device="cpu"))
-        vs_cpu = convert.leaf_differences(cpu_np, card_np, bounds)
+        vs_cpu = convert.leaf_differences(cpu.result(), card_np, bounds)
         writes = (getattr(wl, "read_frac", 1.0) < 1.0
                   or hasattr(wl, "tenant_read_frac"))
         cfg_on = cfg.replace(**(KERNEL_FLAGS if writes else READ_FLAGS))
@@ -1933,6 +2036,8 @@ def phase_array(dev, card):
             MixedReadWrite(read_frac=0.7, io_depth=256)),
     }
     recs = []
+    cpu_runs = {name: cpu_state(c, s, wl, ROUNDS, m4, plat)
+                for name, (c, s, wl) in cells.items()}
     for name, (c, s, wl) in cells.items():
         graphed, rec, counted, graph = array_run(c, s, wl, m4, dev)
         add(counted)
@@ -1944,8 +2049,7 @@ def phase_array(dev, card):
         g_np = convert.engine_state_to_numpy(graphed)
         vs_eager = convert.leaf_differences(
             convert.engine_state_to_numpy(eager), g_np)
-        cpu_np = convert.engine_state_to_numpy(engine.simulate(
-            c, s, wl, plat, rounds=ROUNDS, num_devices=m4, device="cpu"))
+        cpu_np = cpu_runs[name].result()
         vs_cpu = convert.leaf_differences(cpu_np, g_np, bounds)
         cpu_ulp = {k: convert.ulp_distance(cpu_np[k], g_np[k])
                    for k in cpu_np if cpu_np[k].dtype.kind == "f"
@@ -2173,20 +2277,15 @@ def graphed_run(cfg, ssd, wl, rounds, dev, reps=2):
         runner.graph.launches
 
 
-def card_vs_cpu(out, cfg, ssd, wl, rounds, num_devices=1, plat=None):
+def card_vs_cpu(out, cpu):
     """Leaves of the card's final state that break their contract with the
-    port's eager run on the CPU (integer leaves equal, float leaves
-    bit-exact but the metric sums, within SUM_LEAF_ULP)."""
+    port's eager run on the CPU (``cpu``: its ``cpu_state`` future;
+    integer leaves equal, float leaves bit-exact but the metric sums,
+    within SUM_LEAF_ULP)."""
     from repro_torch import convert
-    from repro_torch.core import engine
-    from repro_torch.core.types import PlatformModel
 
-    cpu = engine.simulate(cfg, ssd, wl, plat or PlatformModel(),
-                          rounds=rounds, num_devices=num_devices,
-                          device="cpu")
     return convert.leaf_differences(
-        convert.engine_state_to_numpy(cpu),
-        convert.engine_state_to_numpy(out),
+        cpu.result(), convert.engine_state_to_numpy(out),
         dict.fromkeys(SUM_LEAVES, SUM_LEAF_ULP))
 
 
@@ -2244,14 +2343,18 @@ def phase_cache(dev, card):
     plat = PlatformModel()
     launches = dict.fromkeys(ops.LAUNCHES, 0)
     _, ssd, wl = fig22_1024()
+    cfgs = {sets: local_1drive(cache=CacheConfig(
+        enabled=sets > 0, num_sets=max(sets, 1), ways=4, hit_us=0.5,
+        chase=2))[0] for sets in CACHE_SETS}
+    cfg_on, ssd_on, wl_on = fig22_1024(**KERNEL_FLAGS)
+    cpu_runs = {sets: cpu_state(cfg, ssd, wl, CACHE_ROUNDS)
+                for sets, cfg in cfgs.items()}
+    cpu_on = cpu_state(cfg_on, ssd_on, wl_on, CACHE_ROUNDS)
     rows = []
-    for sets in CACHE_SETS:
-        cfg, _ = local_1drive(cache=CacheConfig(
-            enabled=sets > 0, num_sets=max(sets, 1), ways=4, hit_us=0.5,
-            chase=2))
+    for sets, cfg in cfgs.items():
         out, rec, _ = graphed_run(cfg, ssd, wl, CACHE_ROUNDS, dev)
         nums = cache_numbers(out.metrics)
-        vs_cpu = card_vs_cpu(out, cfg, ssd, wl, CACHE_ROUNDS)
+        vs_cpu = card_vs_cpu(out, cpu_runs[sets])
         bad = differing(nums, CACHE_REFERENCE[sets])
         rows.append({"num_sets": sets, **nums,
                      "completed": float(out.metrics.completed),
@@ -2271,14 +2374,14 @@ def phase_cache(dev, card):
             check(not diff, f"fig 22 at {sets} sets: graphed and eager "
                             f"states differ in {diff}")
 
-    cfg, ssd, wl = fig22_1024(**KERNEL_FLAGS)
+    cfg, ssd, wl = cfg_on, ssd_on, wl_on
     ops.reset_launches()
     on, on_rec, _ = graphed_run(cfg, ssd, wl, CACHE_ROUNDS, dev, reps=1)
     torch.cuda.synchronize()
     counted = dict(ops.LAUNCHES)
     for k, v in counted.items():
         launches[k] += v
-    on_vs_cpu = card_vs_cpu(on, cfg, ssd, wl, CACHE_ROUNDS)
+    on_vs_cpu = card_vs_cpu(on, cpu_on)
     on_vs_eager, on_eager_ms = eager_vs_graph(on, cfg, ssd, wl,
                                               CACHE_ROUNDS, dev)
     check(not on_vs_eager, f"fig 22 with the kernel flags: graphed and "
@@ -2379,12 +2482,17 @@ def phase_qp(dev, card):
     from repro_torch.kernels import ops
 
     rows, launches = [], dict.fromkeys(ops.LAUNCHES, 0)
+    cpu_runs = {}
+    for n_coal in QP_COALESCE:
+        cfg, ssd, wl = fig21_row(n_coal)
+        cpu_runs[n_coal] = [cpu_state(c, ssd, wl, QP_ROUNDS) for c in (
+            cfg, cfg.replace(use_pallas_segscan=True))]
     for n_coal in QP_COALESCE:
         cfg, ssd, wl = fig21_row(n_coal)
         out, rec, _ = graphed_run(cfg, ssd, wl, QP_ROUNDS, dev)
         nums = {k: v for k, v in virtual_numbers(out.metrics).items()
                 if k in ("virtual_miops", "p50_us", "p99_us")}
-        vs_cpu = card_vs_cpu(out, cfg, ssd, wl, QP_ROUNDS)
+        vs_cpu = card_vs_cpu(out, cpu_runs[n_coal][0])
         bad = differing(nums, QP_REFERENCE[n_coal])
         cfg_on = cfg.replace(use_pallas_segscan=True)
         ops.reset_launches()
@@ -2393,7 +2501,7 @@ def phase_qp(dev, card):
         counted = dict(ops.LAUNCHES)
         for k, v in counted.items():
             launches[k] += v
-        on_vs_cpu = card_vs_cpu(on, cfg_on, ssd, wl, QP_ROUNDS)
+        on_vs_cpu = card_vs_cpu(on, cpu_runs[n_coal][1])
         eager = {}
         if n_coal == 1:     # the costliest doorbell queue, eager on the card
             for name, c, o in (("flags_off", cfg, out),
@@ -2815,6 +2923,14 @@ def phase_fabric(dev, card, read_rec):
 
     launches = dict.fromkeys(ops.LAUNCHES, 0)
     rows, bad = [], {}
+    cpu_runs = {}
+    for name in FABRIC_CPU_ROWS:
+        cell = fabric_cells()[name]
+        cpu_runs[name] = cpu_state(*port_cell(cell), cell["rounds"],
+                                   cell["devices"])
+    _, ssd_q, wl_q = remote_qos()
+    cpu_on = cpu_state(remote_qos(**READ_FLAGS)[0], ssd_q, wl_q,
+                       FABRIC_ROUNDS)
     t_rows = time.perf_counter()
     for name, cell in fabric_cells().items():
         fig = cell["figure"]
@@ -2829,8 +2945,8 @@ def phase_fabric(dev, card, read_rec):
             fig, nums, FABRIC_REFERENCE[fig][name[len(fig) + 1:]], out)
         rec = {"row": name, **nums, "wall_s_with_capture": wall}
         if name in FABRIC_CPU_ROWS:
-            rec["card_vs_cpu_violations"] = card_vs_cpu(
-                out, cfg, ssd, wl, cell["rounds"], cell["devices"])
+            rec["card_vs_cpu_violations"] = card_vs_cpu(out,
+                                                        cpu_runs[name])
             if rec["card_vs_cpu_violations"]:
                 off["card_vs_cpu"] = rec["card_vs_cpu_violations"]
         if off:
@@ -2861,7 +2977,7 @@ def phase_fabric(dev, card, read_rec):
     on, on_rec = graph_vs_eager(cfg_on, ssd, wl, plat, dev)
     for k, v in on_rec["launches"].items():
         launches[k] += v
-    on_vs_cpu = card_vs_cpu(on, cfg_on, ssd, wl, FABRIC_ROUNDS)
+    on_vs_cpu = card_vs_cpu(on, cpu_on)
     check(not on_vs_cpu, f"remote_qos on seg_scan: card and CPU differ: "
                          f"{on_vs_cpu}")
     local_cfg, _ = local_1drive(**READ_FLAGS)
@@ -3205,6 +3321,16 @@ def phase_figures(dev, card):
     launches = dict.fromkeys(ops.LAUNCHES, 0)
     t_phase = time.perf_counter()
     rows, records = {}, []
+    cpu_runs = {}
+    for name, cell in figure_cells().items():
+        cfg, ssd, wl, plat = figure_config(cell)
+        if name in FIGURE_CPU_ROWS:
+            cpu_runs[name] = cpu_state(cfg, ssd, wl, cell["rounds"],
+                                       plat=plat)
+        if name in FIGURE_FLAG_ROWS:
+            cpu_runs[name, "flags"] = cpu_state(
+                figure_config(cell, **READ_FLAGS)[0], ssd, wl,
+                cell["rounds"], plat=plat)
     for name, cell in figure_cells().items():
         cfg, ssd, wl, plat = figure_config(cell)
         t0 = time.perf_counter()
@@ -3222,15 +3348,15 @@ def phase_figures(dev, card):
                 float(out.metrics.completed) / statistics.median(walls))
             rec["graphed_wall_s_runs"] = walls
         if name in FIGURE_CPU_ROWS:
-            rec["card_vs_cpu_violations"] = card_vs_cpu(
-                out, cfg, ssd, wl, cell["rounds"], plat=plat)
+            rec["card_vs_cpu_violations"] = card_vs_cpu(out,
+                                                        cpu_runs[name])
         if name in FIGURE_FLAG_ROWS:
             cfg_on, _, _, _ = figure_config(cell, **READ_FLAGS)
             on = counted(lambda: engine.make_runner(
                 cfg_on, ssd, wl, plat, cell["rounds"], device=dev)(
                 engine.init_state(cfg_on, ssd, wl, device=dev)), launches)
             rec["read_flags_card_vs_cpu_violations"] = card_vs_cpu(
-                on, cfg_on, ssd, wl, cell["rounds"], plat=plat)
+                on, cpu_runs[name, "flags"])
         rows.setdefault(cell["figure"], {}).setdefault(cell["row"], {}) \
             .update(nums)
         records.append(rec)
@@ -3406,7 +3532,7 @@ def phase_variants(dev, card):
     arr = counted(lambda: engine.simulate(lcfg, ssd40, wl, plat, rounds=8,
                                           num_devices=2, device=dev),
                   launches)
-    arr_viol = card_vs_cpu(arr, lcfg, ssd40, wl, 8, num_devices=2)
+    arr_viol = card_vs_cpu(arr, cpu_state(lcfg, ssd40, wl, 8, 2))
     if arr_viol:
         bad["local_sanitized_array"] = arr_viol
 
@@ -3926,11 +4052,13 @@ def tree_leaves(tree):
 
 
 def tree_to(tree, device):
+    """A copy of a parameter tree on ``device`` (never the same tensors:
+    a train step updates its parameters in place)."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(tree_to(v, device) for v in tree)
-    return tree.to(device)
+    return tree.to(device, copy=True)
 
 
 def tree_float_(tree) -> None:
@@ -4316,6 +4444,324 @@ def phase_serve_archs(dev, card):
     return total
 
 
+# -- phase: training -----------------------------------------------------------
+
+TRAIN_ARCHS = ("starcoder2-3b", "gemma2-27b", "recurrentgemma-9b",
+               "xlstm-1.3b", "qwen2-moe-a2.7b")
+# SMOKE cuts of the train step (the CPU tests' own): remat on, two
+# attention and two loss chunks at seq 64.
+TRAIN_SMOKE_CUT = dict(remat=True, attn_chunk=32, loss_chunk=32)
+VJP_CARD_REL = 1e-4        # flash_vjp grads vs autograd, of the largest |g|
+TRAIN_CPU_REL = 1e-5       # SMOKE step: loss and parameters, card vs CPU
+CUT_LOSS_REL = 1e-5        # full width, 2 layers, float32: loss ...
+CUT_NORM_REL = 1e-4        # ... and gradient norm, card vs CPU
+TRAIN_BATCH, TRAIN_SEQ = 4, 128    # launch.train's defaults
+TRAIN_TIMED_STEPS = 3
+# Expected first loss of a random model: logits of unit variance (the
+# tied N(0, 1/d_model) embedding against the unit-variance LayerNorm
+# output) give ln V + 1/2 (11.30 at V = 49152), not ln V.
+FIRST_LOSS_TOL = 0.5
+
+
+def vjp_case(name, b, hq, hkv, s, d, window, cap, scale, chunk, dev):
+    """flash_vjp on the card against torch autograd through the plain
+    full-softmax ``attention_ref`` on the card, float32, from one seeded
+    draw: the largest |Δ| of o, dq, dk, dv over that tensor's largest."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.models.flash_vjp import flash_attention_jnp
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, ct = (torch.randn(shape, generator=gen, device=dev)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d), (b, hq, s, d)))
+    outs = []
+    for fn in (lambda q, k, v: flash_attention_jnp(
+                   q, k, v, True, window, cap, scale, chunk, chunk),
+               lambda q, k, v: ref.attention_ref(
+                   q, k, v, causal=True, window=window, logit_softcap=cap,
+                   scale=scale)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(*leaves)
+        (o * ct).sum().backward()
+        torch.cuda.synchronize()
+        outs.append(([o.detach()] + [x.grad for x in leaves],
+                     (time.perf_counter() - t0) * 1e3))
+    (got, ms), (want, plain_ms) = outs
+    rel = {n: float((g - w).abs().max() / w.abs().max())
+           for n, g, w in zip(("o", "dq", "dk", "dv"), got, want)}
+    return {"case": name, "shape": [b, hq, hkv, s, d], "window": window,
+            "softcap": cap, "chunk": chunk, "rel_err": rel,
+            "bound": VJP_CARD_REL, "fwd_bwd_ms": ms,
+            "plain_fwd_bwd_ms": plain_ms}
+
+
+def train_step_card_vs_cpu(arch, dev):
+    """One ``make_train_step`` step of the SMOKE config on the card and on
+    the CPU from the same parameters and batch: |Δ loss| over |loss|, and
+    the largest |Δ| of the updated parameters over their largest |value|."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.train import data, loop, optimizer
+
+    cfg = configs.get_config(arch, smoke=True).replace(**TRAIN_SMOKE_CUT)
+    tcfg = loop.TrainConfig(batch=4, seq=64)
+    params = transformer.init_model(torch.Generator().manual_seed(0), cfg)
+    batch = data.synth_batch(0, tcfg.batch, tcfg.seq, cfg.vocab)
+    runs = []
+    for where in (torch.device("cpu"), dev):
+        p = tree_to(params, where)
+        p, _, _, m = loop.make_train_step(cfg, tcfg)(
+            p, optimizer.init_opt_state(p), {}, data.to_device(batch, where))
+        runs.append((float(m["loss"]), tree_to(p, "cpu")))
+    (l_cpu, p_cpu), (l_card, p_card) = runs
+    top = max(float(x.abs().max()) for x in tree_leaves(p_cpu))
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_card)))
+    return {"arch": arch, "loss_card": l_card, "loss_cpu": l_cpu,
+            "loss_rel": abs(l_card - l_cpu) / abs(l_cpu),
+            "params_max_abs_over_max": worst / top,
+            "bound": TRAIN_CPU_REL}
+
+
+def full_width_cut(dev):
+    """starcoder2-3b at full width cut to 2 of 30 layers, float32, batch
+    1 x 128: the loss and the gradient norm of ``value_and_grad`` on the
+    card against the CPU, from parameters drawn on the card."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.train import data, loop, optimizer
+
+    cfg = configs.get_config("starcoder2-3b").replace(n_layers=2,
+                                                      dtype="float32")
+    params = transformer.init_model(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = data.synth_batch(0, 1, TRAIN_SEQ, cfg.vocab)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        p = tree_to(params, where)
+        t0 = time.perf_counter()
+        loss, g = loop.value_and_grad(p, cfg, *data.to_device(
+            batch, where).values())
+        norm = float(optimizer.global_norm(g))
+        out.append({"loss": float(loss), "grad_norm": norm,
+                    "s": time.perf_counter() - t0})
+        del p, g
+    card, cpu = out
+    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "batch": [1, TRAIN_SEQ], "card": card,
+            "cpu": cpu,
+            "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+            "grad_norm_rel": abs(card["grad_norm"] - cpu["grad_norm"])
+            / cpu["grad_norm"],
+            "bound": {"loss": CUT_LOSS_REL, "grad_norm": CUT_NORM_REL}}
+
+
+def full_width_steps(dev):
+    """starcoder2-3b FULL through ``launch.train.setup`` and the loop's
+    cold start, on ``Prefetcher`` batches at batch 4 x 128: one warm-up
+    step, ``TRAIN_TIMED_STEPS`` timed steps (a synchronise around each),
+    then one profiled step. Returns its record."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import data, loop
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, tcfg, device = launch_train.setup(
+        "starcoder2-3b", batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=str(dev))
+    check(cfg.remat and not cfg.use_pallas and cfg.dtype == "bfloat16",
+          f"starcoder2-3b FULL: remat {cfg.remat}, use_pallas "
+          f"{cfg.use_pallas}, {cfg.dtype}")
+    t0 = time.perf_counter()
+    params, opt_state, residuals = loop.cold_start(cfg, tcfg, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    # In bf16 an update of ~lr moves only the elements below ~lr/2^-8 (the
+    # warm-up's lr is 3e-6 a step): the zero-initialised biases, and a few
+    # percent of the embedding.
+    moved_leaves = {"embed": lambda p: p["embed"],
+                    "attn_bq": lambda p: p["periods"][0]["attn"]["bq"]}
+    before = {k: f(params).clone() for k, f in moved_leaves.items()}
+    step_fn = loop.make_train_step(cfg, tcfg)
+    prefetch = data.Prefetcher(tcfg.batch, tcfg.seq, cfg.vocab, tcfg.seed,
+                               device=device)
+    it = iter(prefetch)
+    ops.reset_launches()
+    losses, norms, walls = [], [], []
+    try:
+        for i in range(1 + TRAIN_TIMED_STEPS):
+            _, batch = next(it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, residuals, m = step_fn(params, opt_state,
+                                                      residuals, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        _, batch = next(it)
+
+        state = {"opt": opt_state}
+
+        def one_step():
+            # A window taken again (``PROFILER_TRIES``) is one more step,
+            # counted like the others.
+            _, state["opt"], _, m = step_fn(params, state["opt"], residuals,
+                                            batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+
+        prof = profiled_window(one_step, 1)
+        opt_state = state["opt"]
+    finally:
+        prefetch.close()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    timed_ms = [w * 1e3 for w in walls[1:]]
+    step_ms = statistics.median(timed_ms)
+    moved = {k: int((moved_leaves[k](params) != v).sum())
+             for k, v in before.items()}
+    del before
+    rec = {
+        "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+        "remat": cfg.remat, "params": n_params,
+        "batch": [tcfg.batch, tcfg.seq],
+        "tokens_per_step": tcfg.batch * tcfg.seq, "init_s": init_s,
+        "losses": losses, "grad_norms": norms,
+        "first_loss_expected": math.log(cfg.vocab) + 0.5,
+        "ln_vocab": math.log(cfg.vocab),
+        "warmup_step_ms": walls[0] * 1e3, "timed_step_ms": timed_ms,
+        "step_wall_ms": step_ms,
+        "tokens_per_wall_s": tcfg.batch * tcfg.seq / (step_ms / 1e3),
+        "profiled_step": {k: prof[k] for k in (
+            "wall_ms_per_round", "device_ms_per_round",
+            "device_events_per_round", "device_idle_share",
+            "top_device_ms_per_round")},
+        "opt_step": int(opt_state["step"]),
+        "elements_moved": moved,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "kernel_launches": launches,
+    }
+    check(all(math.isfinite(x) for x in losses + norms)
+          and all(x > 0 for x in norms),
+          f"full-width losses {losses}, gradient norms {norms}")
+    check(abs(losses[0] - rec["first_loss_expected"]) <= FIRST_LOSS_TOL,
+          f"first loss {losses[0]} not within {FIRST_LOSS_TOL} of "
+          f"{rec['first_loss_expected']}")
+    check(rec["opt_step"] == len(losses),
+          f"opt_state step {rec['opt_step']} after {len(losses)} steps")
+    check(all(v > 0 for v in moved.values()), f"parameters unmoved: {moved}")
+    check(not launches, f"the training path launched kernels: {launches}")
+    del params, opt_state, residuals, m, state, batch
+    return rec
+
+
+def train_restart(dev):
+    """``train()`` on starcoder2-3b SMOKE on the card, 8 steps with a
+    checkpoint every 2, crashed at step 5 and restarted from step 4,
+    against an uninterrupted run, each under a temporary directory that is
+    removed afterwards."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.train import loop
+
+    cfg = configs.get_config("starcoder2-3b", smoke=True)
+    runs = {}
+    for name, fail in (("restarted", {5}), ("uninterrupted", None)):
+        with tempfile.TemporaryDirectory() as d:
+            tcfg = loop.TrainConfig(batch=2, seq=32, steps=8, ckpt_every=2,
+                                    ckpt_dir=d)
+            runs[name] = loop.train(cfg, tcfg, resume=False, fail_at=fail,
+                                    device=dev)
+    got, want = runs["restarted"], runs["uninterrupted"]
+    return {"restarts": got.restarts, "final_step": got.step,
+            "losses": got.losses, "uninterrupted_losses": want.losses,
+            "losses_equal": got.losses == want.losses[:5] + want.losses[4:]}
+
+
+def autograd_refusal(dev):
+    """The CUDA attention routes raise on inputs that require grad."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    q = torch.randn(1, 4, 64, 64, device=dev)
+    kv = torch.randn(1, 2, 64, 64, device=dev)
+    lengths = torch.full((1,), 64, dtype=torch.int32, device=dev)
+    out = {}
+    for name, call in (
+            ("flash_attention", lambda: ops.flash_attention(
+                q.clone().requires_grad_(True), kv, kv, causal=True)),
+            ("decode_attention", lambda: ops.decode_attention(
+                q[:, :, 0].clone().requires_grad_(True), kv, kv,
+                lengths))):
+        try:
+            call()
+            out[name] = "no error"
+        except RuntimeError as e:
+            out[name] = str(e)
+    return out
+
+
+def phase_train(dev, card):
+    """Training on the card (``TRAIN_ARCHS``, starcoder2-3b FULL)."""
+    import torch
+
+    from repro_torch import configs
+
+    g2 = configs.get_config("gemma2-27b")
+    vjp = [
+        vjp_case("starcoder2-3b attention", 2, 24, 2, 1024, 128, None, None,
+                 128 ** -0.5, 256, dev),
+        # gemma2-27b's heads, softcap and scale; the window cut from 4096
+        # to 512 so that it masks inside S = 1024.
+        vjp_case("gemma2-27b local attention", 1, g2.n_heads, g2.n_kv_heads,
+                 1024, g2.d_head, 512, g2.attn_softcap, g2.attn_scale, 256,
+                 dev),
+    ]
+    torch.cuda.empty_cache()
+    smoke = [train_step_card_vs_cpu(arch, dev) for arch in TRAIN_ARCHS]
+    cut = full_width_cut(dev)
+    torch.cuda.empty_cache()
+    full = full_width_steps(dev)
+    torch.cuda.empty_cache()
+    restart = train_restart(dev)
+    refusal = autograd_refusal(dev)
+    emit({"phase": "train", "card": card, "flash_vjp": vjp,
+          "smoke_card_vs_cpu": smoke, "full_width_2_layers": cut,
+          "full_width": full, "restart": restart,
+          "autograd_refusal": refusal})
+    for rec in vjp:
+        check(max(rec["rel_err"].values()) <= VJP_CARD_REL,
+              f"flash_vjp on the card: {rec}")
+    for rec in smoke:
+        check(rec["loss_rel"] <= TRAIN_CPU_REL
+              and rec["params_max_abs_over_max"] <= TRAIN_CPU_REL,
+              f"SMOKE train step, card against CPU: {rec}")
+    check(cut["loss_rel"] <= CUT_LOSS_REL
+          and cut["grad_norm_rel"] <= CUT_NORM_REL,
+          f"full width, 2 layers, card against CPU: {cut}")
+    check(restart["restarts"] == 1 and restart["final_step"] == 8
+          and restart["losses_equal"], f"train() restart: {restart}")
+    check(all("use_pallas=False" in v for v in refusal.values()),
+          f"attention kernels under autograd: {refusal}")
+    return full["kernel_launches"]
+
+
 # -- main ---------------------------------------------------------------------
 
 TPU_KERNELS = {
@@ -4330,6 +4776,13 @@ TPU_KERNELS = {
 
 
 def main() -> int:
+    try:
+        return run_all()
+    finally:
+        stop_cpu_workers()
+
+
+def run_all() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script",
               file=sys.stderr)
@@ -4370,7 +4823,8 @@ def main() -> int:
                       (phase_array,), (phase_cache,), (phase_qp,),
                       (phase_fabric, read), (phase_figures,),
                       (phase_variants,), (phase_serve_tier,),
-                      (phase_serve_long,), (phase_serve_archs,)):
+                      (phase_serve_long,), (phase_serve_archs,),
+                      (phase_train,)):
         for k, v in run_phase(fn, dev, card, *args).items():
             launches[k] += v
 

@@ -12,7 +12,9 @@ page cache (``cache.tags``, ``cache.rr``) travels when it is there and is
 travel as every other leaf does. Engine states
 (``EngineState``) and client states (``ClientState``) go both ways. Model
 parameters are exchanged as the reference's own nested tree of dicts and
-tuples with numpy leaves (``model_params_from_numpy``).
+tuples with numpy leaves, both ways (``model_params_from_numpy``,
+``model_params_to_numpy``), and so is AdamW's state
+(``opt_state_from_numpy``, ``opt_state_to_numpy``).
 """
 from __future__ import annotations
 
@@ -174,6 +176,70 @@ def model_params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
 
     device = torch.device(device)
     return {k: conv(v, k == "periods") for k, v in tree.items()}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """torch -> numpy, bit for bit; bfloat16 as ``ml_dtypes``' bfloat16
+    (the reference's own numpy type for it, present wherever JAX is)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def model_params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
+    """The reference's ``init_model`` tree (dicts, and tuples for
+    ``periods`` and ``remainder``) with numpy leaves from the port's
+    parameters: the inverse of ``model_params_from_numpy``."""
+    if len(params["periods"]) != len(cfg.pattern):
+        raise ValueError(f"parameters do not match {cfg.name}'s pattern")
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(conv(v) for v in node)
+        return _numpy(node)
+
+    return conv(params)
+
+
+def opt_state_to_numpy(state: dict, cfg: ModelConfig) -> dict:
+    """AdamW's ``{m, v, step}`` as the reference's tree with numpy
+    leaves (m and v float32 trees of the parameters' shape, step an int32
+    scalar)."""
+    return {"m": model_params_to_numpy(state["m"], cfg),
+            "v": model_params_to_numpy(state["v"], cfg),
+            "step": _numpy(state["step"])}
+
+
+def opt_state_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
+    """The port's AdamW state on ``device`` from the reference's
+    ``{m, v, step}`` with numpy leaves; m and v must be float32 and step
+    int32."""
+    device = torch.device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(conv(v) for v in node)
+        a = np.asarray(node)
+        if a.dtype != np.float32:
+            raise ValueError(f"m/v leaf of dtype {a.dtype.name}, want "
+                             "float32")
+        return _tensor(a, device)
+
+    step = np.asarray(tree["step"])
+    if step.dtype != np.int32 or step.shape != ():
+        raise ValueError(f"step: {step.dtype}{step.shape}, want an int32 "
+                         "scalar")
+    if len(tree["m"]["periods"]) != len(cfg.pattern):
+        raise ValueError(f"state does not match {cfg.name}'s pattern")
+    return {"m": conv(tree["m"]), "v": conv(tree["v"]),
+            "step": _tensor(step, device)}
 
 
 def search_inputs_from_numpy(vecs, graph, queries, device

@@ -142,7 +142,14 @@ def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     zeros and adds them, so a float element comes out as ``x + 0.0`` (-0
     becomes +0, every other value keeps its bits). The port writes that
     sum straight into each half's slots, one kernel a half as a copy
-    would be."""
+    would be; where autograd records (a half requires grad, which the
+    ``out=`` writes would refuse), the two sums are laid side by side
+    with a stack instead, the same bits."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        n = a.shape[-1] + b.shape[-1]
+        pad = a.shape[-1] - b.shape[-1]            # 0, or 1 for an odd n
+        both = torch.stack([a, torch.nn.functional.pad(b, (0, pad))], -1)
+        return (both.flatten(-2)[..., :n]) + 0.0
     out = torch.empty(
         tuple(a.shape[:-1]) + (a.shape[-1] + b.shape[-1],),
         dtype=a.dtype, device=a.device,

@@ -154,7 +154,10 @@ def _add_odd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _fma64(a: torch.Tensor, b: "torch.Tensor | float",
            c: "torch.Tensor | float") -> torch.Tensor:
     """a * b + c rounded once, in double (Boldo and Melquiond's emulation
-    through rounding to odd). Scalars become fills on ``a``'s device."""
+    through rounding to odd). Scalars become fills on ``a``'s device.
+    Only ``pow_f32`` calls it, on doubles it builds from a base's and a
+    table's bits, so no gradient ever reaches it (``_fma32`` is the one
+    that training differentiates)."""
     b = b if isinstance(b, torch.Tensor) else torch.full_like(a, b)
     c = c if isinstance(c, torch.Tensor) else torch.full_like(a, c)
     uh, ul = _two_prod(a, b)
@@ -162,10 +165,36 @@ def _fma64(a: torch.Tensor, b: "torch.Tensor | float",
     return th + _add_odd(tl, ul)
 
 
-def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+class _Fma32(torch.autograd.Function):
     """float32 a * b + c rounded once: the product is exact in double, and
-    a double sum rounded to odd then to float32 rounds as one step."""
-    return _add_odd(a.to(F64) * b.to(F64), c.to(F64)).to(F32)
+    a double sum rounded to odd then to float32 rounds as one step. The
+    rounding goes through integer views, which autograd cannot follow, so
+    the gradient is written out: that of ``a * b + c``, (g·b, g·a, g) in
+    float32, as JAX differentiates the fused product."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        return _add_odd(a.to(F64) * b.to(F64), c.to(F64)).to(F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(F32)
+        return g * b.to(F32), g * a.to(F32), g
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once (``_Fma32``), differentiable where
+    the three operands share one shape (every differentiated call)."""
+    return _Fma32.apply(a, b, c)
+
+
+def const_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a constant ``c`` as the reference's compiled code
+    computes it: XLA's simplifier rewrites a division by a constant into a
+    product with the float32 reciprocal ``1 / float32(c)``."""
+    return x * float(np.float32(1) / np.float32(c))
 
 
 # -- powf ----------------------------------------------------------------------
@@ -175,15 +204,20 @@ def _flushed(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < _FLT_MIN, torch.zeros_like(x), x)
 
 
-def pow_f32(x: torch.Tensor, y: float) -> torch.Tensor:
+def pow_f32(x: torch.Tensor, y: "float | torch.Tensor") -> torch.Tensor:
     """``x ** float32(y)`` on float32 ``x`` as the reference's compiled
     ``jnp.power`` with a constant exponent gives it on the CPU: products
-    for 2 and 3, else glibc's ``powf``; subnormal results flushed."""
-    y = float(np.float32(y))
-    if y == 2.0:
-        return _flushed(x * x)
-    if y == 3.0:
-        return _flushed(x * x * x)
+    for 2 and 3, else glibc's ``powf``; subnormal results flushed. A
+    float32 tensor ``y`` (an exponent the reference computes, as AdamW's
+    ``b1 ** step``) always takes ``powf``."""
+    if isinstance(y, torch.Tensor):
+        y = y.to(F64)
+    else:
+        y = float(np.float32(y))
+        if y == 2.0:
+            return _flushed(x * x)
+        if y == 3.0:
+            return _flushed(x * x * x)
     invc_t, logc_t, exp2_t = _tables(x.device)
     # log2_inline: x = 2^k z, z in [OFF, 2 OFF), c the centre of z's
     # subinterval; log2(x) = log1p(z/c - 1)/ln2 + log2(c) + k.

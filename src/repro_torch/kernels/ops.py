@@ -129,8 +129,21 @@ def die_contention(ready, cost, chip, event, chip_busy):
     return ref.die_contention_ref(ready, cost, chip, event, chip_busy)
 
 
+def _refuse_autograd(what: str, *tensors) -> None:
+    """The attention kernels are forward only, as the reference's Pallas
+    kernels are (its kernel path cannot be differentiated): a kernel's
+    output carries no gradient, so an input that asks for one raises here
+    rather than losing it. On either device, so that the kernel route
+    behaves alike on both."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the attention kernels have no backward; train with "
+            "ModelConfig.use_pallas=False (the chunked flash_vjp path)")
+
+
 def flash_attention(q, k, v, **kw):
     """``kw``: ``causal``, ``window``, ``logit_softcap``, ``scale``."""
+    _refuse_autograd("flash_attention", q, k, v)
     if _on_cuda(q, "flash_attention"):
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), **kw)
@@ -139,6 +152,7 @@ def flash_attention(q, k, v, **kw):
 
 def decode_attention(q, k_cache, v_cache, lengths, **kw):
     """``kw``: ``window``, ``logit_softcap``, ``scale``."""
+    _refuse_autograd("decode_attention", q, k_cache, v_cache)
     if _on_cuda(q, "decode_attention"):
         return _da.decode_attention(q.contiguous(), k_cache.contiguous(),
                                     v_cache.contiguous(), lengths, **kw)

@@ -147,7 +147,15 @@ def _softmax_pv(logits: torch.Tensor, mask: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
     """``softmax(where(mask, logits, NEG)) @ v`` in float32, where a row
     with nothing unmasked gives zeros (the kernels' ``l == 0`` rule).
-    Works in place on ``logits``."""
+    Works in place on ``logits``, but where autograd records (an input
+    requires grad: the training tests differentiate through this version)
+    out of place, the same values."""
+    if torch.is_grad_enabled() and logits.requires_grad:
+        logits = logits.masked_fill(~mask, NEG)
+        m = torch.amax(logits, dim=-1, keepdim=True)
+        p = torch.exp(logits - m).masked_fill(~mask, 0.0)
+        l = torch.sum(p, dim=-1, keepdim=True)
+        return torch.matmul(p, v) / torch.where(l > 0, l, 1.0)
     logits.masked_fill_(~mask, NEG)
     m = torch.amax(logits, dim=-1, keepdim=True)
     p = logits.sub_(m).exp_().masked_fill_(~mask, 0.0)

@@ -1,2 +1,2 @@
-"""LM substrate of the port (port of ``repro/models``): dense attention
-blocks; MoE, recurrent and modality blocks are not ported yet."""
+"""LM substrate of the port (port of ``repro/models``): attention, MoE,
+recurrent and modality blocks; forward, loss, prefill and decode."""

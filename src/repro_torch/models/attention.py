@@ -4,8 +4,10 @@ decode path (port of ``repro/models/attention.py``).
 With ``ModelConfig.use_pallas`` the two products go through the port's
 kernels (``kernels/ops.py``: the CUDA ``flash_attention`` and
 ``decode_attention`` for CUDA tensors, their plain versions for CPU
-tensors); without it, prefill runs the chunked plain-PyTorch
-``flash_attention_jnp`` and decode the reference's einsum branch. One card
+tensors), forward only: they raise on inputs that require grad, as the
+reference's kernel path cannot be differentiated. Without it, prefill and
+training run the chunked plain-PyTorch ``flash_attention_jnp`` (with the
+flash backward) and decode the reference's einsum branch. One card
 holds whole tensors, so the reference's sharding constraints are the
 identity here; its tensor- and sequence-parallel attention
 (``_sharded_flash``'s mesh branch, ``_megatron_attention``) waits for

@@ -1,4 +1,4 @@
-"""Block assembly, model forward, prefill and decode (port of
+"""Block assembly, model forward and loss, prefill and decode (port of
 ``repro/models/transformer.py``) for every block kind: attention
 (``ATTN``, ``ATTN_LOCAL``, with a dense or a MoE MLP), Griffin's
 ``RGLRU`` and xLSTM's ``MLSTM`` and ``SLSTM``, fed token ids or a
@@ -8,18 +8,22 @@ Parameters keep the reference's tree: ``periods`` holds one dict per
 pattern member whose leaves are stacked over the ``n_periods`` periods,
 ``remainder`` the unrolled tail layers. The reference scans over the
 periods; here a Python loop over the period index takes the place of the
-scan. Caches keep the same layout (per pattern member the block's cache
-tree, every leaf stacked over periods: (k, v) for attention, (conv, h)
-for RG-LRU, (conv, (C, n, m)) for mLSTM, (h, c, n, m) for sLSTM) and
-decode writes them in place.
+scan (``forward`` unbinds each stacked leaf once, so that the backward
+stacks the layers' gradients in one kernel, and under ``cfg.remat``
+recomputes each period in the backward). Caches keep the same layout
+(per pattern member the block's cache tree, every leaf stacked over
+periods: (k, v) for attention, (conv, h) for RG-LRU, (conv, (C, n, m))
+for mLSTM, (h, c, n, m) for sLSTM) and decode writes them in place.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.types import resolve_device
+from repro_torch.core.xla_math import const_div
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, recurrent
 from repro_torch.models.config import (
@@ -241,20 +245,58 @@ def _default_mrope(cfg: ModelConfig, positions, mrope_positions):
     return mrope_positions
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, each leaf through one
+    ``unbind``: its backward stacks the layers' gradients in one kernel
+    (indexing layer by layer would add a zero-filled full-size gradient
+    per layer)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(tree, tuple):
+        parts = [_unstack(v, n) for v in tree]
+        return [tuple(v[i] for v in parts) for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def forward(p: dict, cfg: ModelConfig, tokens=None, embeds=None,
             positions=None, mrope_positions=None):
     """Backbone forward of (B, S) token ids or (B, S, D) embeds. Returns
-    (final-normed hidden states (B, S, D), the MoE aux loss)."""
+    (final-normed hidden states (B, S, D), the MoE aux loss).
+
+    Under ``cfg.remat`` each period (one pass over ``cfg.pattern``) is
+    recomputed in the backward (``torch.utils.checkpoint``, non-reentrant):
+    only its input is kept, the reference's ``jax.checkpoint`` with
+    ``nothing_saveable`` around its scanned period. The remainder layers
+    are not wrapped, as in the reference."""
     h = _embed_tokens(p, cfg, tokens, embeds)
     b, s = h.shape[:2]
     if positions is None:
         positions = _positions(b, s, h.device)
     mrope_positions = _default_mrope(cfg, positions, mrope_positions)
-    # One running sum (the reference sums per period, then the periods:
-    # the same few float32 terms in another order).
+
+    def period_fn(h, pp):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for j, kind in enumerate(cfg.pattern):
+            h, a = block_apply(pp[j], h, cfg, kind, positions,
+                               mrope_positions)
+            aux = aux + a
+        return h, aux
+
+    # Each period's aux is summed, then the periods' in order, as the
+    # reference's scan and ``jnp.sum`` (for the few float32 terms the
+    # order of the reference's reduction is not kept).
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for lp, kind, _, _ in _layers(p, cfg):
-        h, a = block_apply(lp, h, cfg, kind, positions, mrope_positions)
+    for pp in _unstack(p["periods"], cfg.n_periods):
+        if cfg.remat:
+            h, a = torch.utils.checkpoint.checkpoint(
+                period_fn, h, pp, use_reentrant=False)
+        else:
+            h, a = period_fn(h, pp)
+        aux = aux + a
+    for j, kind in enumerate(cfg.remainder):
+        h, a = block_apply(p["remainder"][j], h, cfg, kind, positions,
+                           mrope_positions)
         aux = aux + a
     return layers.norm_apply(cfg.norm, p["final_norm"], h), aux
 
@@ -266,6 +308,39 @@ def _head_matrix(p, cfg: ModelConfig):
 def logits_fn(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     logits = (h @ _head_matrix(p, cfg)).float()
     return layers.softcap(logits, cfg.final_softcap)
+
+
+def _chunk_loss(h_c, w, y_c, final_softcap):
+    """Σ (logsumexp − gold logit) over one chunk's (B, c) positions,
+    float32."""
+    logits = layers.softcap((h_c @ w).float(), final_softcap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y_c.long()[..., None])[..., 0]
+    return torch.sum(logz - gold)
+
+
+def loss_fn(p: dict, cfg: ModelConfig, tokens, labels, embeds=None,
+            mrope_positions=None) -> torch.Tensor:
+    """Mean next-token cross-entropy (plus the MoE aux loss), the vocab
+    projection chunked over S by ``min(cfg.loss_chunk, S)`` so the
+    (B, S, V) logits never materialize; each chunk is recomputed in the
+    backward (checkpointed, as the reference's ``jax.checkpoint`` around
+    its chunk step) and the float32 running sum adds the chunks in
+    order; the mean divides as the compiled reference does
+    (``xla_math.const_div``)."""
+    h, aux = forward(p, cfg, tokens=tokens, embeds=embeds,
+                     mrope_positions=mrope_positions)
+    b, s, _ = h.shape
+    w = _head_matrix(p, cfg)
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"S={s} is not a multiple of the loss chunk {c}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, c):
+        total = total + torch.utils.checkpoint.checkpoint(
+            _chunk_loss, h[:, i:i + c], w, labels[:, i:i + c],
+            cfg.final_softcap, use_reentrant=False)
+    return const_div(total, b * s) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,182 @@
+"""Training loop (port of ``repro/train/loop.py``): gradient accumulation,
+compressed gradients, checkpoint/restart and failure injection, on one
+device.
+
+The loop is host-driven (one ``train_step`` per iteration) so the fault
+tolerance (checkpoint cadence, failure injection, deterministic data
+re-dispatch) lives in ordinary Python around the step. The step takes
+the gradient of ``transformer.loss_fn`` with autograd and updates the
+parameters, m and v in place (the reference donates them to its jitted
+step). Multi-GPU training waits for ROADMAP A19.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import tempfile
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch import checkpoint
+from repro_torch.core.xla_math import const_div
+from repro_torch.core.types import resolve_device
+from repro_torch.distributed import compression
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.train import data as data_lib
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train.tree import leaves, tree_map, unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch: int = 8
+    seq: int = 128
+    steps: int = 20
+    grad_accum: int = 1
+    ckpt_every: int = 10
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+    compress_grads: bool = False
+    seed: int = 0
+    opt: opt_lib.AdamWConfig = opt_lib.AdamWConfig()
+
+
+def value_and_grad(params, cfg: ModelConfig, tokens, labels):
+    """(loss, gradient tree) of ``loss_fn`` at ``params``; a leaf the loss
+    does not reach has the gradient None. Each gradient has its leaf's
+    dtype."""
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    with torch.enable_grad():
+        loss = transformer.loss_fn(unflatten(params, flat), cfg, tokens,
+                                   labels)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.detach(), unflatten(params, grads)
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+    """The (params, opt_state, residuals, batch) -> (params, opt_state,
+    residuals, metrics) step; params, m and v are written in place."""
+
+    def grads_of(params, tokens, labels):
+        loss, g = value_and_grad(params, cfg, tokens, labels)
+        return loss, tree_map(
+            lambda p, x: torch.zeros_like(p) if x is None else x, params, g)
+
+    def step(params, opt_state, residuals, batch):
+        tokens, labels = batch["tokens"], batch["labels"]
+        if tcfg.grad_accum > 1:
+            b = tokens.shape[0] // tcfg.grad_accum
+            gsum = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            lsum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for i in range(tcfg.grad_accum):
+                rows = slice(i * b, (i + 1) * b)
+                loss, g = grads_of(params, tokens[rows], labels[rows])
+                tree_map(lambda acc, x: acc.add_(x), gsum, g)
+                lsum = lsum + loss
+                del g
+            grads = tree_map(lambda x: const_div(x, tcfg.grad_accum), gsum)
+            loss = const_div(lsum, tcfg.grad_accum)
+        else:
+            loss, grads = grads_of(params, tokens, labels)
+
+        if tcfg.compress_grads:
+            grads, residuals = compression.compress_tree(grads, residuals)
+
+        params, opt_state, metrics = opt_lib.apply_updates(
+            params, grads, opt_state, tcfg.opt
+        )
+        metrics["loss"] = loss
+        return params, opt_state, residuals, metrics
+
+    return step
+
+
+def cold_start(cfg: ModelConfig, tcfg: TrainConfig, device):
+    """(params, opt_state, residuals) of a fresh run: the port's seeded
+    ``init_model`` on ``device``, zero AdamW state, zero residuals when
+    the gradients are compressed (else an empty dict)."""
+    device = resolve_device(device)
+    params = transformer.init_model(
+        torch.Generator(device=device).manual_seed(tcfg.seed), cfg)
+    opt_state = opt_lib.init_opt_state(params)
+    residuals = (compression.init_residuals(params)
+                 if tcfg.compress_grads else {})
+    return params, opt_state, residuals
+
+
+@dataclasses.dataclass
+class TrainResult:
+    step: int
+    losses: list
+    restarts: int
+    wall_s: float
+
+
+def train(
+    cfg: ModelConfig,
+    tcfg: TrainConfig,
+    resume: bool = True,
+    fail_at: set | None = None,
+    log: Callable[[str], None] = lambda s: None,
+    device: "torch.device | str | None" = None,
+) -> TrainResult:
+    """Run the loop on ``device`` (``cuda`` unless named); ``fail_at``
+    injects a simulated crash at those steps (the loop then restarts from
+    the latest checkpoint, proving checkpoint/restart end to end)."""
+    device = resolve_device(device)
+    fail_at = set(fail_at or ())
+    step_fn = make_train_step(cfg, tcfg)
+    losses: list = []
+    restarts = 0
+    t0 = time.time()
+
+    params, opt_state, residuals = cold_start(cfg, tcfg, device)
+    start = checkpoint.latest_step(tcfg.ckpt_dir) if resume else None
+    if start is not None:
+        state, _ = checkpoint.load(
+            tcfg.ckpt_dir, {"params": params, "opt": opt_state}, step=start
+        )
+        params, opt_state = state["params"], state["opt"]
+        step0 = start
+        log(f"resumed from step {start}")
+    else:
+        step0 = 0
+
+    prefetch = data_lib.Prefetcher(
+        tcfg.batch, tcfg.seq, cfg.vocab, tcfg.seed, start_idx=step0,
+        device=device,
+    )
+    try:
+        it = iter(prefetch)
+        step = step0
+        while step < tcfg.steps:
+            _, batch = next(it)
+            if step in fail_at:
+                fail_at.discard(step)
+                restarts += 1
+                log(f"injected failure at step {step}; restarting")
+                prefetch.close()
+                del params, opt_state, residuals
+                inner = train(cfg, tcfg, resume=True, fail_at=fail_at,
+                              log=log, device=device)
+                return TrainResult(inner.step, losses + inner.losses,
+                                   restarts + inner.restarts,
+                                   time.time() - t0)
+            params, opt_state, residuals, metrics = step_fn(
+                params, opt_state, residuals, batch
+            )
+            losses.append(float(metrics["loss"]))
+            step += 1
+            if step % tcfg.ckpt_every == 0 or step == tcfg.steps:
+                checkpoint.save(
+                    tcfg.ckpt_dir, step,
+                    {"params": params, "opt": opt_state},
+                )
+                checkpoint.gc_old(tcfg.ckpt_dir, keep=2)
+                log(f"step {step} ckpt saved loss={losses[-1]:.4f}")
+    finally:
+        prefetch.close()
+    return TrainResult(step, losses, restarts, time.time() - t0)

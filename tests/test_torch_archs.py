@@ -27,6 +27,7 @@ from repro.models import transformer as jtr
 from repro_torch import configs, convert
 from repro_torch.models import layers, modality, transformer
 from repro_torch.serving import loop
+from port_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "xlstm-1.3b",
          "recurrentgemma-9b", "musicgen-large", "qwen2-vl-72b"]

@@ -54,6 +54,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.workloads import MixedReadWrite as TMixed
 from repro_torch.workloads import PoissonOpenLoop as TPoisson
 from repro_torch.workloads import TraceReplay as TTrace
+from port_threads import one_torch_thread  # noqa: F401
 
 M = 3
 SMALL = dict(num_sqs=8, sq_depth=64, fetch_width=16, num_units=4,

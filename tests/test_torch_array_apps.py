@@ -25,6 +25,7 @@ from repro_torch.apps import vector_search as tvs
 from repro_torch.convert import ulp_distance
 from repro_torch.core import types as tt
 from repro_torch.serving import kv_tier
+from port_threads import one_torch_thread  # noqa: F401
 
 TIER_REL = 1e-5
 # tests/test_torch_vector_search.py's bounds for one drive.

@@ -12,6 +12,7 @@ import pytest
 
 from benchmarks import figures
 from chip_smoke import ARRAY_DEVICES, ARRAY_REFERENCE
+from port_threads import one_torch_thread  # noqa: F401
 
 COLUMNS = dict(aggregate_miops=1, fraction_of_target=2, p50_us=3, p99_us=4)
 

@@ -22,6 +22,7 @@ from repro.models.flash_vjp import flash_attention_jnp as jflash_jnp
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.decode_attention import TILE, split_plan
 from repro_torch.models.flash_vjp import flash_attention_jnp
+from port_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

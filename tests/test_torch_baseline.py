@@ -37,6 +37,7 @@ from repro_torch.core import types as tt
 from repro_torch.core.client import StorageClient as TClient
 from repro_torch.kernels import ops, ref
 from repro_torch.workloads import MixedReadWrite as TMixed
+from port_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(num_sqs=8, sq_depth=64, fetch_width=16)
 SUM_ULP = 16     # the metrics' float sums (XLA adds in another order)

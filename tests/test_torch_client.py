@@ -24,6 +24,7 @@ from repro.core.client import StorageClient as JClient
 from repro_torch.convert import ulp_distance
 from repro_torch.core import types as tt
 from repro_torch.core.client import StorageClient as TClient
+from port_threads import one_torch_thread  # noqa: F401
 
 TIME_ULP = 0
 CONFIGS = {

@@ -19,6 +19,7 @@ from repro_torch.core import engine as te
 from repro_torch.core import types as tt
 from repro_torch.kernels import build
 from repro_torch.workloads import MixedReadWrite
+from port_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(num_sqs=8, sq_depth=64, fetch_width=16)
 

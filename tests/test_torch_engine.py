@@ -45,6 +45,7 @@ from repro_torch.core import frontend as tf
 from repro_torch.core import types as tt
 from repro_torch.core.device import DevicePipeline as TPipeline
 from repro_torch.workloads import MixedReadWrite as TMixed
+from port_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(num_sqs=8, sq_depth=64, fetch_width=16)
 SUM_ULP = 16

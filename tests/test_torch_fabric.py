@@ -37,6 +37,7 @@ from repro_torch.core import fabric as tf
 from repro_torch.core import qp as tqp
 from repro_torch.core import types as tt
 from test_torch_pipeline import agree, batches, device_states, make_batch, pair
+from port_threads import one_torch_thread  # noqa: F401
 
 GPS_ULP = 2          # the reference's fused cost * share product (module doc)
 SUM_ULP = 16

@@ -12,6 +12,7 @@ from repro import workloads as jw
 from repro.core import types as jt
 from repro_torch import workloads as tw
 from test_torch_fabric import closed_loop
+from port_threads import one_torch_thread  # noqa: F401
 
 REMOTE_QOS = dict(remote=True, tx_bytes_per_us=30_000.0,
                   rx_bytes_per_us=30_000.0, rtt_us=2.0, wire_txn_us=0.2,

@@ -13,6 +13,7 @@ import pytest
 
 from benchmarks import figures
 from chip_smoke import WORKLOAD_REFERENCE
+from port_threads import one_torch_thread  # noqa: F401
 
 # (figure function, the row's name column -> cell name, column of each
 # number in the figure's rows).

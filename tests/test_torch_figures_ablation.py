@@ -9,6 +9,7 @@ the NVMeVirt timing model at a 5 MIOPS target, io_depth 1024, 32
 rounds). Every number to the last digit, and each final state leaf by
 leaf (``test_torch_figures_validation.check_cells``)."""
 from test_torch_figures_validation import check_cells
+from port_threads import one_torch_thread  # noqa: F401
 
 
 def test_fig13_full_frontend():

@@ -20,6 +20,7 @@ from repro.core import types as jt
 from repro_torch import convert
 from repro_torch.core import engine as te
 from test_torch_fabric import assert_states_agree, jleaves
+from port_threads import one_torch_thread  # noqa: F401
 
 ROWS = ("fig23_bw_1000", "fig23_bw_inf")
 

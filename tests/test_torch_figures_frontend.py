@@ -26,6 +26,7 @@ from repro_torch.core import engine as te
 from repro_torch.core import types as tt
 from test_torch_fabric import assert_states_agree, tconfig
 from test_torch_figures_validation import check_cells
+from port_threads import one_torch_thread  # noqa: F401
 
 
 def test_fig03_swarmio_cell_at_depth_512():

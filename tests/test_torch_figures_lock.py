@@ -13,6 +13,7 @@ import pytest
 
 from chip_smoke import FABRIC_REFERENCE, fabric_cells
 from test_torch_figures_fabric import check_row
+from port_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

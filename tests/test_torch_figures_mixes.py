@@ -4,6 +4,7 @@ steady-state numbers of ``chip_smoke.WORKLOAD_REFERENCE`` against
 import pytest
 
 from test_torch_figures import cells_of, check_cell
+from port_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("cell", cells_of("fig19") + cells_of("fig20"))

@@ -7,6 +7,7 @@ average E2E within the bound of the reference's recursive per-tenant sum
 see ``tests/test_torch_figures_fabric.py``."""
 from chip_smoke import FABRIC_REFERENCE, fabric_cells
 from test_torch_figures_fabric import check_row
+from port_threads import one_torch_thread  # noqa: F401
 
 
 def test_fig26_share_row():

@@ -10,6 +10,7 @@ import pytest
 
 from benchmarks import figures
 from chip_smoke import QP_COALESCE, QP_REFERENCE
+from port_threads import one_torch_thread  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)

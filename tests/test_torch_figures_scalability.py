@@ -10,6 +10,7 @@ the card is held to its ``FIGURES_REFERENCE`` row. The panel's wall-clock
 half is not recomputed either: it times this host, not the emulated
 drive."""
 from test_torch_figures_validation import check_cells
+from port_threads import one_torch_thread  # noqa: F401
 
 
 def test_fig12a_swarmio_at_16_units():

@@ -7,6 +7,7 @@ import pytest
 
 from chip_smoke import FABRIC_REFERENCE, fabric_cells
 from test_torch_figures_fabric import check_row
+from port_threads import one_torch_thread  # noqa: F401
 
 ROWS = ("fig25_sw_4000", "fig25_sw_inf")
 

@@ -12,6 +12,7 @@ import pytest
 from benchmarks import kv_serving
 from chip_smoke import TIER_CACHE_REFERENCE, TIER_CACHES
 from repro.core.types import CacheConfig, EngineConfig
+from port_threads import one_torch_thread  # noqa: F401
 
 KEYS = ("tokens_per_s", "avg_storage_us", "blocks_per_step")
 

@@ -17,6 +17,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.block_gather import block_gather_tiled as pallas_tiled
 from repro_torch.kernels import build, ops, ref
+from port_threads import one_torch_thread  # noqa: F401
 
 
 def t(x):

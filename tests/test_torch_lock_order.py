@@ -33,6 +33,7 @@ from repro_torch.core import epoch as tep
 from repro_torch.core import types as tt
 from test_torch_fabric import assert_states_agree, jleaves, tconfig
 from test_torch_pipeline import agree, batches, device_states, make_batch, pair
+from port_threads import one_torch_thread  # noqa: F401
 
 PLAT = dict(lock_per_req_us=1.0, lock_per_batch_us=3.0)
 

@@ -25,6 +25,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import loop
+from port_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["starcoder2-3b", "gemma2-27b", "yi-34b"]
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -19,6 +19,7 @@ from repro.core import segops as jseg
 from repro.models import moe as jmoe
 from repro_torch import configs
 from repro_torch.models import moe
+from port_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"]
 TOL = dict(rtol=1e-5, atol=1e-5)

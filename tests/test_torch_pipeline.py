@@ -31,6 +31,7 @@ from repro_torch.core import frontend as tfe
 from repro_torch.core import qp as tqp
 from repro_torch.core import timing as tti
 from repro_torch.core import types as tt
+from port_threads import one_torch_thread  # noqa: F401
 
 FUTURE_40M = dict(name="future-40m", t_max_iops=40e6, l_min_us=30.0,
                   n_instances=512, num_blocks=1 << 14)

@@ -41,6 +41,7 @@ from repro_torch.core import qp as tqp
 from repro_torch.core import segops as tseg
 from repro_torch.core import types as tt
 from repro_torch.core.client import StorageClient as TClient
+from port_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(num_sqs=8, sq_depth=64, fetch_width=16)
 SUM_ULP = 16

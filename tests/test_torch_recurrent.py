@@ -27,6 +27,7 @@ from repro_torch import configs
 from repro_torch.convert import ulp_distance
 from repro_torch.core import segops
 from repro_torch.models import recurrent as rec
+from port_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -27,6 +27,7 @@ from repro_torch import convert
 from repro_torch.bench import FUTURE_40M
 from repro_torch.core import types as tt
 from repro_torch.core.client import StorageClient as TClient
+from port_threads import one_torch_thread  # noqa: F401
 
 N = 1024
 M = 4

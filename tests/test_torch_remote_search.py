@@ -15,6 +15,7 @@ from repro.core import types as jt
 from repro_torch import convert
 from repro_torch.apps import vector_search as tvs
 from test_torch_remote_client import M, N, _CompiledClient
+from port_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

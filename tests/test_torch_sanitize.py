@@ -36,6 +36,7 @@ from repro_torch.core import segops as tseg
 from repro_torch.core import types as tt
 from test_torch_engine import SMALL
 from test_torch_pipeline import flat
+from port_threads import one_torch_thread  # noqa: F401
 
 KW = dict(SMALL, num_units=4, sanitize=True, lock_order="ready_time")
 WL = dict(io_depth=8, read_frac=0.8)  # half of each SQ's fetch is valid

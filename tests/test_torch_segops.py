@@ -17,6 +17,7 @@ import torch
 
 from repro.core import segops as js
 from repro_torch.core import segops as ts
+from port_threads import one_torch_thread  # noqa: F401
 
 SIZES = [1, 2, 3, 7, 64, 255, 1000]
 

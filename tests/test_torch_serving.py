@@ -31,6 +31,7 @@ from repro_torch.core.client import StorageClient
 from repro_torch.launch import serve
 from repro_torch.serving import kv_tier, loop
 from repro_torch.serving import paged_kv as pk
+from port_threads import one_torch_thread  # noqa: F401
 
 SSD = dict(t_max_iops=1e6, l_min_us=20.0, n_instances=32, num_blocks=1 << 12)
 ECFG = dict(num_units=4, fetch_width=64)

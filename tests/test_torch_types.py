@@ -16,6 +16,7 @@ import torch
 
 from repro.core import types as jt
 from repro_torch.core import types as tt
+from port_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -41,6 +41,7 @@ from repro_torch.core import types as tt
 from test_torch_engine import SMALL, jleaves
 from test_torch_fabric import assert_states_agree
 from test_torch_pipeline import flat
+from port_threads import one_torch_thread  # noqa: F401
 
 D7 = dict(t_max_iops=2.47e6, l_min_us=50.0, n_instances=64)  # fractional
 WL = dict(io_depth=16, read_frac=0.8)

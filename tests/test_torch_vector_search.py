@@ -31,6 +31,7 @@ from repro_torch import convert
 from repro_torch.apps import vector_search as tvs
 from repro_torch.convert import ulp_distance
 from repro_torch.core import xla_math
+from port_threads import one_torch_thread  # noqa: F401
 
 N = 1024
 DIST_ULP = 0

@@ -29,6 +29,7 @@ from repro_torch.core import types as tt
 from repro_torch.core import xla_math
 from repro_torch.core.segops import hash_u32, uniform01
 from repro_torch.workloads import generators as tgen
+from port_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(num_sqs=8, sq_depth=64, fetch_width=16)
 SUM_ULP = 16
