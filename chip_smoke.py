@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then
-runs nineteen phases, printing one JSON line each (with the phase's
+runs twenty phases, printing one JSON line each (with the phase's
 seconds, ``phase_s``):
 
   env              nvidia-smi's card name and power limit, torch/CUDA
@@ -209,6 +209,26 @@ seconds, ``phase_s``):
                    uninterrupted run); and the attention kernels' refusal
                    of autograd on the card. The path launches none of the
                    seven kernels
+  mesh             several ranks: a world of 4 spawned processes, NCCL with
+                   a card each where there are 4 cards, else gloo with all
+                   of them on this one (built after the kernels, so no rank
+                   builds); each collective the paths use checked on CUDA
+                   tensors of each dtype; fig 17's arrays (M = 4, 8 over 4
+                   and over 2 ranks, main_path_read's flags, graphed) bit
+                   for bit against one process and at ARRAY_REFERENCE's
+                   numbers, each rank's wall ms a round; one 8192-row batch
+                   through the distributed timing update against
+                   ``timing.update`` bit for bit; starcoder2-3b FULL
+                   prefill (2 x 2048, bf16) on (data 2, model 2) through the
+                   ``flash_attention`` kernel on 12 q heads a rank and on
+                   the Megatron-SP route, within the ``serve_long`` bound of
+                   the one-process prefill; qwen3-moe-30b-a3b (2 of 48
+                   layers, float32, expert parallel, capacity E / k, the
+                   one-process routing forced) against one process; and
+                   starcoder2-3b at full width, 2 layers, float32: two
+                   steps on (2, 2), a checkpoint, the reload onto (1, 2)
+                   and a third step, against three one-process steps. The
+                   ranks' kernel launches are summed into the kernels line
 
 After the kernels phase, one line ``{"launch_floor": ...}`` times an
 empty kernel (``csrc/launch_floor.cu``) through the wrappers' launch path:
@@ -4579,7 +4599,7 @@ def full_width_steps(dev):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    cfg, tcfg, device = launch_train.setup(
+    cfg, tcfg, device, _ = launch_train.setup(
         "starcoder2-3b", batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=str(dev))
     check(cfg.remat and not cfg.use_pallas and cfg.dtype == "bfloat16",
           f"starcoder2-3b FULL: remat {cfg.remat}, use_pallas "
@@ -4762,6 +4782,612 @@ def phase_train(dev, card):
     return full["kernel_launches"]
 
 
+# -- mesh: a world of ranks ---------------------------------------------------
+
+MESH_WORLD = 4
+MESH_TIMEOUT_S = 300.0
+# (M drives, ranks): fig 17's local_1drive arrays over 4 and over 2 ranks.
+MESH_ARRAYS = ((4, 4), (8, 4), (4, 2), (8, 2))
+MESH_UPDATE_ROWS = 8192     # one local_1drive-sized batch, split 4 ways
+MESH_PREFILL_BATCH, MESH_PREFILL_SEQ = 2, 2048
+MESH_PREFILL_LAYERS = 30    # starcoder2-3b's all 30
+MESH_MOE_LAYERS, MESH_MOE_BATCH, MESH_MOE_SEQ = 2, 2, 256
+MESH_MOE_REL = 1e-4         # float32, routing forced: hidden vs one process
+MESH_TRAIN_LAYERS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 4, 128
+# The losses (the three steps' and the next batch's after them) and each
+# step's gradient norm within 1e-5 relative of one process.
+MESH_TRAIN_REL = 1e-5
+# Each leaf's change over the three steps (p3 - p0) within
+# MESH_TRAIN_CHANGE_REL of its largest |change| in one process, on the
+# elements whose one-process |gradient| is at least MESH_TRAIN_GRAD_FLOOR
+# of the leaf's largest at every step. Adam moves an element by about the
+# learning rate whatever its gradient's size, so an element whose
+# gradient is near its rounding error moves by noise; elsewhere the
+# change differs by the parameters' float32 rounding: over three warm-up
+# steps (1.8e-5) a ULP is 4e-4 of the change for a weight near 0.1 and
+# 6.6e-3 for a norm weight near 1, so the bound takes three of the
+# latter, while the resumed step alone is half the change
+# (``third_step_share_min``).
+MESH_TRAIN_CHANGE_REL = 2e-2
+MESH_TRAIN_GRAD_FLOOR = 1e-4
+
+
+def mesh_backend():
+    """NCCL with one card a rank where there are enough cards, else gloo
+    with every rank on ``cuda:0`` (NCCL refuses two ranks on one card)."""
+    import torch
+
+    return "nccl" if torch.cuda.device_count() >= MESH_WORLD else "gloo"
+
+
+def mesh_collectives(rank, dev):
+    """Each collective the mesh paths use, on CUDA tensors of each dtype
+    they carry (float32, bfloat16, int32, bool), under the world's
+    backend, through ``sharding._collective``: the result must be the
+    right one. (torch 2.11's gloo takes all of them on CUDA tensors, so
+    the port composes none.)"""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+
+    n = dist.get_world_size()
+    group = dist.group.WORLD
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.bool):
+        base = torch.arange(8, device=dev) + 16 * rank
+        every = torch.arange(8, device=dev) + 16 * torch.arange(
+            n, device=dev)[:, None]
+        if dtype == torch.bool:
+            base, every = base % 3 == 0, every % 3 == 0
+        x, every = base.to(dtype), every.to(dtype)
+        total = (every.any(0) if dtype == torch.bool
+                 else every.sum(0).to(dtype))
+        cases = {
+            "all_gather": (every.reshape(-1), (8 * n,)),
+            "reduce_scatter": (total[rank * 8 // n:(rank + 1) * 8 // n],
+                               (8 // n,)),
+            "all_reduce": (total, (8,)),
+        }
+        for kind, (want, shape) in cases.items():
+            buf = torch.empty(shape, dtype=dtype, device=dev)
+            got = shd._collective(kind, buf, x, group)
+            out[f"{kind}_{str(dtype).split('.')[-1]}"] = bool(
+                torch.equal(got, want))
+    return out
+
+
+def mesh_engine(rank, dev):
+    """The sharded array runner on fig 17's arrays (main_path_read's
+    flags and functional data, depth 1024, ``ROUNDS`` graphed rounds):
+    each rank's wall seconds of the assembly (``engine._assemble`` timed
+    alone on the rank's block) and of its rounds (the runner's call less
+    that), and on rank 0 the states against the one-process
+    ``make_array_runner`` on the card, leaf for leaf, and fig 17's
+    numbers."""
+    import gc
+
+    import torch
+
+    from repro_torch import convert, cuda_graph
+    from repro_torch.bench import local_1drive
+    from repro_torch.core import engine
+    from repro_torch.core.types import PlatformModel, WorkloadConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_axis_mesh
+
+    # main_path_read's flags and its functional data (block_gather on the
+    # reads); fig 17's virtual numbers do not depend on the data.
+    cfg, ssd = local_1drive(emulate_data=True, **READ_FLAGS)
+    wl = WorkloadConfig(io_depth=1024)
+    meshes = {4: make_axis_mesh("dev"), 2: make_axis_mesh("dev",
+                                                          ranks=[0, 1])}
+    recs, launches, states = [], dict.fromkeys(ops.LAUNCHES, 0), {}
+    for m, n in MESH_ARRAYS:
+        if rank >= n:
+            continue
+        init = engine.init_array_state(cfg, ssd, wl, m, device=dev)
+        run = engine.make_sharded_array_runner(
+            cfg, ssd, wl, PlatformModel(), ROUNDS, mesh=meshes[n])
+        run(init)                      # capture, warm
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = run(init)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        # The assembly alone, on this rank's block of the result.
+        step = m // n
+        mine = cuda_graph.map_leaves(
+            lambda x: x.narrow(0, rank * step, step).clone(), out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._assemble(mine, meshes[n].get_group("dev"), n)
+        torch.cuda.synchronize()
+        assemble_s = time.perf_counter() - t0
+        rec = {"drives": m, "ranks": n, "rank": rank,
+               "wall_ms_per_round": (call_s - assemble_s) * 1e3 / ROUNDS,
+               "assemble_ms": assemble_s * 1e3,
+               "launches": dict(ops.LAUNCHES)}
+        if rank == 0:
+            states[(m, n)] = convert.engine_state_to_numpy(out)
+            rec["fig17"] = array_numbers(out, m)
+        recs.append(rec)
+        # This case's graphs go before the next capture starts.
+        del out, init, run
+        gc.collect()
+        torch.cuda.synchronize()
+    if rank == 0:
+        for m in sorted({m for m, _ in MESH_ARRAYS}):
+            init = engine.init_array_state(cfg, ssd, wl, m, device=dev)
+            one = engine.make_array_runner(cfg, ssd, wl, PlatformModel(),
+                                           ROUNDS, device=dev)
+            one(init)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = convert.engine_state_to_numpy(one(init))
+            one_ms = (time.perf_counter() - t0) * 1e3 / ROUNDS
+            for rec in recs:
+                if rec["drives"] == m:
+                    rec["one_process_wall_ms_per_round"] = one_ms
+                    rec["differing_leaves"] = convert.leaf_differences(
+                        want, states[(m, rec["ranks"])])
+    torch.cuda.synchronize()
+    return recs, launches
+
+
+def mesh_update(rank, dev, inp):
+    """One batch of ``MESH_UPDATE_ROWS`` rows on local_1drive's drive,
+    split over the 4 ranks through ``timing.update(axis_name=)``; rank 0
+    holds it against ``timing.update`` over the whole batch on the card,
+    bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import local_1drive
+    from repro_torch.core import timing
+    from repro_torch.core.types import RequestBatch, TimingState
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_axis_mesh
+
+    _, ssd = local_1drive()
+    mesh = make_axis_mesh("dev")
+    n = MESH_WORLD
+    nl = MESH_UPDATE_ROWS // n
+    u = inp["update"]
+
+    def batch_of(lo, hi):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dev)
+
+        lba = t(u["lba"])
+        z = torch.zeros_like(lba)
+        return RequestBatch(arrival=t(u["arrival"]), sq_id=z, slot=z,
+                            opcode=z, lba=lba, nblocks=torch.ones_like(lba),
+                            buf_id=z, req_id=z, valid=t(u["valid"]))
+
+    state = TimingState(torch.from_numpy(u["busy"]).to(dev),
+                        torch.tensor(int(u["rr"]), dtype=torch.int32,
+                                     device=dev))
+    with shd.region(mesh):
+        st, comp = timing.update(state, batch_of(rank * nl, (rank + 1) * nl),
+                                 ssd, axis_name="dev")
+    g = shd._gather(comp.view(torch.int32), mesh.get_group("dev"), 0)
+    rec = {"rows": MESH_UPDATE_ROWS, "ranks": n}
+    if rank == 0:
+        st1, comp1 = timing.update(state, batch_of(0, MESH_UPDATE_ROWS), ssd)
+        rec["completion_differing"] = int(
+            (g != comp1.view(torch.int32)).sum())
+        rec["busy_differing"] = int(
+            (st.busy_until.view(torch.int32)
+             != st1.busy_until.view(torch.int32)).sum())
+        rec["rr_equal"] = bool(torch.equal(st.rr, st1.rr))
+    return rec
+
+
+def mesh_prefill(rank, dev, inp):
+    """starcoder2-3b FULL (bf16; ``MESH_PREFILL_LAYERS`` layers) prefill
+    of a 2 x 2048 batch on the (2, 2) mesh: with ``use_pallas=True`` (the
+    q heads split over ``model``: every rank launches the
+    ``flash_attention`` kernel on its 12 heads), then on the Megatron-SP
+    route; rank 0 holds both logits to the one-process plain prefill on
+    the card within the ``serve_long`` bound."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+
+    cfg = configs.get_config("starcoder2-3b").replace(
+        n_layers=MESH_PREFILL_LAYERS)
+    params = transformer.init_model(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    tokens = torch.from_numpy(inp["prefill_tokens"]).to(dev)
+    mesh = make_mesh(2, 2)
+    rec = {"arch": "starcoder2-3b", "layers": cfg.n_layers,
+           "full_layers": 30, "batch": MESH_PREFILL_BATCH,
+           "seq": MESH_PREFILL_SEQ, "dtype": cfg.dtype,
+           "q_heads_per_rank": cfg.n_heads // 2}
+    got, launches = {}, dict.fromkeys(ops.LAUNCHES, 0)
+    for name, pallas in (("kernel", True), ("megatron", False)):
+        c = cfg.replace(use_pallas=pallas)
+        with torch.no_grad(), shd.use_rules(mesh, shd.DEFAULT_RULES):
+            if pallas:
+                transformer.prefill(params, c, tokens)   # warm
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = transformer.prefill(params, c, tokens)
+            logits = shd.full_tensor(logits)
+            torch.cuda.synchronize()
+            rec[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        rec[f"{name}_launches"] = dict(ops.LAUNCHES)
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        got[name] = logits.float()
+    if rank == 0:
+        with torch.no_grad():
+            c = cfg.replace(use_pallas=False)
+            transformer.prefill(params, c, tokens)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, _ = transformer.prefill(params, c, tokens)
+            torch.cuda.synchronize()
+            rec["one_process_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        for name, logits in got.items():
+            r, cos = logit_agreement(logits, want.float())
+            rec[f"{name}_max_abs_over_max_logit"] = r
+            rec[f"{name}_cosine"] = cos
+    del params
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def mesh_moe(rank, dev, inp):
+    """qwen3-moe-30b-a3b at full width, ``MESH_MOE_LAYERS`` of 48 layers,
+    float32, ``moe_ep=True`` on the (2, 2) mesh, at a capacity factor of
+    E / k (an expert's capacity is then every token, so no pair drops on
+    either path and expert parallelism computes the one-device sum).
+    Rank 0 runs the one-process forward first and every rank forces its
+    experts (``moe.route``), as ``serve_archs`` does for MoE; the hidden
+    states are held within ``MESH_MOE_REL`` of their largest."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe, transformer
+
+    base = configs.get_config("qwen3-moe-30b-a3b")
+    cf = base.n_experts / base.top_k
+    cfg = base.replace(n_layers=MESH_MOE_LAYERS, dtype="float32",
+                       moe_ep=True, capacity_factor=cf, use_pallas=False)
+    params = transformer.init_model(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    b, s = MESH_MOE_BATCH, MESH_MOE_SEQ
+    tokens = torch.from_numpy(inp["moe_tokens"]).to(dev)
+    route = moe.route
+    rec = {"arch": "qwen3-moe-30b-a3b", "layers": cfg.n_layers,
+           "full_layers": base.n_layers, "dtype": cfg.dtype,
+           "capacity_factor": cf, "batch": b, "seq": s}
+    plain, want = [], None
+    if rank == 0:
+        def record(p_, xt, c_, t):
+            r = route(p_, xt, c_, t)
+            plain.append(r["top_e"].cpu())
+            check(r["cap"] >= xt.shape[0], f"capacity {r['cap']} drops")
+            return r
+
+        moe.route = record
+        try:
+            with torch.no_grad():
+                want, _ = transformer.forward(params, cfg, tokens)
+        finally:
+            moe.route = route
+    box = [plain]
+    dist.broadcast_object_list(box, src=0)
+    plain = box[0]
+    mesh = make_mesh(2, 2)
+    dp = mesh.get_coordinate()[0]
+    calls = [0]
+
+    def forced(p_, xt, c_, t):
+        r = route(p_, xt, c_, t)
+        check(r["cap"] >= xt.shape[0], f"EP capacity {r['cap']} drops")
+        top = plain[calls[0] % len(plain)].reshape(b, s, -1)
+        calls[0] += 1
+        rows = b // 2
+        top_e = top[dp * rows:(dp + 1) * rows].reshape(-1, top.shape[-1])
+        top_e = top_e.to(xt.device)
+        top_p = torch.gather(r["probs"], 1, top_e)
+        r.update(top_e=top_e, top_p=top_p / top_p.sum(-1, keepdim=True))
+        return r
+
+    moe.route = forced
+    try:
+        with torch.no_grad(), shd.use_rules(mesh, shd.DEFAULT_RULES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h, _ = transformer.forward(params, cfg, tokens)
+            h = shd.full_tensor(h)
+            torch.cuda.synchronize()
+            rec["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe.route = route
+    rec["moe_layer_calls"] = calls[0]
+    if rank == 0:
+        rec["max_abs_over_max"] = float((h - want).abs().max()
+                                        / want.abs().max())
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_train(rank, dev, inp):
+    """starcoder2-3b at full width, ``MESH_TRAIN_LAYERS`` layers, float32:
+    two steps on the (2, 2) mesh (parameters and AdamW state replicated),
+    a checkpoint (rank 0 writes it), the reload onto (1, 2) with the
+    rules' shardings (the only step of sharded parameters and AdamW
+    blocks), a third step there and the loss of the next batch after it.
+    Rank 0 then runs the uninterrupted three steps in one process (with
+    each step's gradient) and holds the losses, each step's gradient norm
+    and each leaf's change over the three steps to them."""
+    import torch
+
+    from repro_torch import checkpoint, configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.train import data, loop
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.tree import jax_leaves
+
+    cfg = configs.get_config("starcoder2-3b").replace(
+        n_layers=MESH_TRAIN_LAYERS, dtype="float32", use_pallas=False)
+    tcfg = loop.TrainConfig(batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ,
+                            steps=3)
+    step_fn = loop.make_train_step(cfg, tcfg)
+
+    def fresh():
+        p = transformer.init_model(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+        return p, opt_lib.init_opt_state(p)
+
+    def batch(i):
+        return data.to_device(data.synth_batch(i, tcfg.batch, tcfg.seq,
+                                               cfg.vocab), dev)
+
+    def run(p, o, first, n, grads=None):
+        losses, norms = [], []
+        for i in range(first, first + n):
+            bt = batch(i)
+            if grads is not None:
+                # Each element's least |gradient| over the steps, and each
+                # leaf's largest.
+                _, g = loop.value_and_grad(p, cfg, bt["tokens"],
+                                           bt["labels"])
+                for k, t in jax_leaves(g):
+                    a = t.abs()
+                    least, top = grads.get(k, (a, 0.0))
+                    grads[k] = (torch.minimum(least, a),
+                                max(top, float(a.max())))
+                del g
+            p, o, _, met = step_fn(p, o, {}, bt)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+        return p, o, losses, norms
+
+    def next_loss(p):
+        bt = batch(3)
+        with torch.no_grad():
+            loss = transformer.loss_fn(p, cfg, bt["tokens"], bt["labels"])
+        return float(loss.to_local() if shd.is_global(loss) else loss)
+
+    rec = {"arch": "starcoder2-3b", "layers": cfg.n_layers,
+           "dtype": cfg.dtype, "batch": tcfg.batch, "seq": tcfg.seq}
+    mesh = make_mesh(2, 2)
+    with shd.use_rules(mesh, shd.DEFAULT_RULES):
+        p, o = fresh()
+        p, o = shd.distribute_tree(p, mesh), shd.distribute_tree(o, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, losses, norms = run(p, o, 0, 2)
+        rec["mesh_step_wall_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+        t0 = time.perf_counter()
+        checkpoint.save(inp["ckpt"], 2, {"params": p, "opt": o})
+        rec["save_s"] = time.perf_counter() - t0
+    del p, o
+    torch.cuda.empty_cache()
+    small = make_mesh(1, 2, ranks=[0, 1])
+    resumed = None
+    if rank < 2:
+        with shd.use_rules(small, shd.DEFAULT_RULES):
+            p, o = fresh()
+            axes = transformer.model_axes(cfg)
+            p_sh = shd.sharding_tree(axes, shd.DEFAULT_RULES, small, p)
+            o_sh = {"m": p_sh, "v": p_sh,
+                    "step": shd.NamedSharding(small, shd.P())}
+            t0 = time.perf_counter()
+            state, manifest = checkpoint.load(
+                inp["ckpt"], {"params": p, "opt": o},
+                shardings={"params": p_sh, "opt": o_sh})
+            rec["load_s"] = time.perf_counter() - t0
+            del p, o
+            p, o = state["params"], state["opt"]
+            rec["resumed_sharded_leaves"] = sum(
+                any(pl.is_shard() for pl in t.placements)
+                for _, t in jax_leaves(p))
+            p, o, last, last_norm = run(p, o, manifest["step"], 1)
+            losses += last + [next_loss(p)]
+            norms += last_norm
+            resumed = {k: shd.full_tensor(t) for k, t in jax_leaves(p)}
+            del p, o, state
+    rec["losses"] = losses
+    rec["grad_norms"] = norms
+    if rank == 0:
+        p, o = fresh()
+        init = {k: t.clone() for k, t in jax_leaves(p)}
+        grads = {}
+        p, o, want, want_norms = run(p, o, 0, 2, grads)
+        before = next_loss(p)
+        second = {k: t.clone() for k, t in jax_leaves(p)}
+        p, o, last, last_norm = run(p, o, 2, 1, grads)
+        want += last + [next_loss(p)]
+        want_norms += last_norm
+        rec["one_process_losses"] = want
+        rec["one_process_grad_norms"] = want_norms
+        rec["loss_rel"] = max(abs(a - b) / abs(b)
+                              for a, b in zip(losses, want))
+        rec["grad_norm_rel"] = max(abs(a - b) / abs(b)
+                                   for a, b in zip(norms, want_norms))
+        # What the third step alone moves: the fourth loss, and each
+        # leaf's change (a step left out would be off by this much).
+        rec["third_step_loss_move_rel"] = abs(want[3] - before) / abs(
+            want[3])
+        change, third, held_share = {}, {}, {}
+        for k, t in jax_leaves(p):
+            least, top = grads[k]
+            held = least >= MESH_TRAIN_GRAD_FLOOR * top
+            want_d = (t - init[k])[held]
+            scale = want_d.abs().max()
+            change[k] = float((resumed[k] - t)[held].abs().max() / scale)
+            third[k] = float((t - second[k])[held].abs().max() / scale)
+            held_share[k] = float(held.float().mean())
+        worst = max(change, key=change.get)
+        rec["change_rel"] = change[worst]
+        rec["worst_leaf"] = {"key": worst, "change_rel": change[worst],
+                             "held_share": held_share[worst]}
+        rec["third_step_share_min"] = min(third.values())
+        rec["held_share_min"] = min(held_share.values())
+        del p, o, second
+    del resumed
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_rank(rank, inp):
+    """What each rank of the ``mesh`` phase's world runs; returns its
+    records and the kernel launches counted on its main-path runs."""
+    import torch
+
+    from repro_torch.launch.mesh import rank_device
+
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import ops
+
+    out = {"rank": rank, "device": str(dev)}
+    t0 = time.perf_counter()
+    out["collectives"] = mesh_collectives(rank, dev)
+    out["engine"], eng = mesh_engine(rank, dev)
+    out["update"] = mesh_update(rank, dev, inp)
+    out["prefill"], pre = mesh_prefill(rank, dev, inp)
+    out["moe"] = mesh_moe(rank, dev, inp)
+    out["train"] = mesh_train(rank, dev, inp)
+    out["rank_s"] = time.perf_counter() - t0
+    out["launches"] = {k: eng.get(k, 0) + pre.get(k, 0) for k in ops.LAUNCHES}
+    return out
+
+
+def phase_mesh(dev, card):
+    """Several ranks: a world of ``MESH_WORLD`` spawned processes (NCCL
+    with a card each where there are enough cards, else gloo with all on
+    one card), built after the kernels, so that no rank builds them. See
+    the ``mesh_*`` functions for the cases; every check runs here on the
+    ranks' results, and a failing or hung rank fails the phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.world import run_world
+
+    torch.cuda.empty_cache()
+    backend = mesh_backend()
+    rng = np.random.default_rng(25)
+    n = MESH_UPDATE_ROWS
+    inp = {
+        "update": dict(
+            busy=np.sort(rng.uniform(0, 50, 512)).astype(np.float32),
+            rr=np.int32(rng.integers(0, 512)),
+            arrival=np.sort(rng.uniform(0, 200, n)).astype(np.float32),
+            lba=rng.integers(0, 1 << 24, n).astype(np.int32),
+            valid=rng.random(n) < 0.9),
+        "prefill_tokens": rng.integers(
+            0, 49152, (MESH_PREFILL_BATCH, MESH_PREFILL_SEQ)).astype(
+                np.int32),
+        "moe_tokens": rng.integers(
+            0, 151936, (MESH_MOE_BATCH, MESH_MOE_SEQ)).astype(np.int32),
+    }
+    with tempfile.TemporaryDirectory(prefix="mesh_ckpt_") as tmp:
+        inp["ckpt"] = tmp
+        # The ranks import this file as the module ``chip_smoke`` (not as
+        # the spawned ``__mp_main__``).
+        sys.path.insert(0, str(ROOT))
+        import chip_smoke
+
+        ranks = run_world(chip_smoke.mesh_rank, MESH_WORLD, inp,
+                          backend=backend, threads=2,
+                          timeout_s=MESH_TIMEOUT_S, store_dir=tmp)
+    r0 = ranks[0]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in r0["launches"]}
+    wall = {f"{e['drives']}x{e['ranks']}": [
+        r["engine"][i]["wall_ms_per_round"] for r in ranks
+        if i < len(r["engine"]) and r["engine"][i]["ranks"] == e["ranks"]]
+        for i, e in enumerate(r0["engine"])}
+    emit({"phase": "mesh", "card": card, "backend": backend,
+          "world": MESH_WORLD, "device_count": torch.cuda.device_count(),
+          "composed_collectives": [],
+          "collectives": r0["collectives"], "engine": r0["engine"],
+          "wall_ms_per_round_by_rank": wall, "update": r0["update"],
+          "prefill": r0["prefill"], "moe": r0["moe"], "train": r0["train"],
+          "rank_s": [r["rank_s"] for r in ranks], "launches": launches})
+    for r in ranks:
+        bad = [k for k, ok in r["collectives"].items() if not ok]
+        check(not bad, f"rank {r['rank']} collectives: {bad}")
+    for e in r0["engine"]:
+        check(not e["differing_leaves"],
+              f"sharded array {e}: differs from one process")
+        check(e["fig17"] == ARRAY_REFERENCE[e["drives"]],
+              f"sharded fig 17 at M = {e['drives']}: {e['fig17']}")
+    u = r0["update"]
+    check(u["completion_differing"] == 0 and u["busy_differing"] == 0
+          and u["rr_equal"], f"distributed timing update: {u}")
+    pre = r0["prefill"]
+    for name in ("kernel", "megatron"):
+        check(pre[f"{name}_max_abs_over_max_logit"] <= LOGIT_REL_BOUND
+              and pre[f"{name}_cosine"] >= LOGIT_MIN_COSINE,
+              f"sharded prefill ({name}): {pre}")
+    check(sum(r["prefill"]["kernel_launches"]["flash_attention"]
+              for r in ranks) > 0, "the sharded prefill launched no "
+          "flash_attention kernel")
+    check(r0["moe"]["max_abs_over_max"] <= MESH_MOE_REL,
+          f"expert-parallel MoE: {r0['moe']}")
+    tr = r0["train"]
+    check(len(tr["losses"]) == 4 and len(tr["grad_norms"]) == 3
+          and tr["resumed_sharded_leaves"] > 0
+          and tr["loss_rel"] <= MESH_TRAIN_REL
+          and tr["grad_norm_rel"] <= MESH_TRAIN_REL
+          and tr["change_rel"] <= MESH_TRAIN_CHANGE_REL,
+          f"training on the mesh and the elastic resume: {tr}")
+    # The checks can see the resumed step: it alone moves the next loss
+    # and every held leaf by more than their bounds.
+    check(tr["third_step_loss_move_rel"] > MESH_TRAIN_REL
+          and tr["third_step_share_min"] > MESH_TRAIN_CHANGE_REL,
+          f"the resumed step moves less than the bounds: {tr}")
+    for k in ("seg_scan", "fused_reap", "block_gather"):
+        check(launches[k] > 0, f"the sharded runner launched no {k}")
+    return launches
+
+
 # -- main ---------------------------------------------------------------------
 
 TPU_KERNELS = {
@@ -4824,7 +5450,7 @@ def run_all() -> int:
                       (phase_fabric, read), (phase_figures,),
                       (phase_variants,), (phase_serve_tier,),
                       (phase_serve_long,), (phase_serve_archs,),
-                      (phase_train,)):
+                      (phase_train,), (phase_mesh,)):
         for k, v in run_phase(fn, dev, card, *args).items():
             launches[k] += v
 

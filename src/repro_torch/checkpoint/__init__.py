@@ -8,9 +8,14 @@ per leaf, numbered in JAX's flatten order (dict keys sorted), and
 ``jax.tree_util.keystr`` writes it and its dtype. A bfloat16 leaf is
 stored as its uint16 payload with ``"dtype": "bfloat16"``. Writes go to
 ``step_<N>.tmp``, each file fsynced, and the directory is renamed only
-then: a crashed writer never corrupts the latest checkpoint. ``load``
-places the leaves on one device; loading onto another mesh (the
-reference's reshard) waits for multi-GPU training (ROADMAP A19).
+then: a crashed writer never corrupts the latest checkpoint.
+
+On a mesh (leaves that are DTensors) every rank gathers each leaf whole
+and rank 0 alone writes. ``load`` reads every leaf on the host and places
+it on one device, or, given ``shardings`` (a tree of
+``sharding.NamedSharding``, e.g. from ``sharding.sharding_tree``), on the
+current mesh as a DTensor under its spec: the reference's elastic
+reshard-on-load, whatever mesh wrote the checkpoint.
 """
 from __future__ import annotations
 
@@ -20,8 +25,11 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.train.tree import jax_leaves, map_with_keys
+from repro_torch.distributed import sharding as shd
+from repro_torch.train.tree import jax_leaves, map_with_keys, tree_map
+
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """(array to store, manifest dtype): bfloat16 as its uint16 payload."""
@@ -33,8 +41,16 @@ def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
 
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
-    """Atomically write checkpoint for ``step``. Returns the final path."""
+    """Atomically write checkpoint for ``step``. Returns the final path.
+    A tree of DTensors is gathered on every rank and written by rank 0;
+    the other ranks wait for the write."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if any(shd.is_global(t) for _, t in jax_leaves(tree)):
+        whole = tree_map(shd.full_tensor, tree)
+        if dist.get_rank() == 0:
+            save(ckpt_dir, step, whole, extra)
+        dist.barrier()
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -85,10 +101,12 @@ def _from_numpy(arr: np.ndarray, entry) -> torch.Tensor:
     return torch.from_numpy(arr.copy(order="C"))
 
 
-def load(ckpt_dir: str, template, step: int | None = None, device=None):
+def load(ckpt_dir: str, template, step: int | None = None, device=None,
+         shardings=None):
     """Load into ``template``'s structure, each leaf in its template leaf's
-    dtype, on ``device`` (each template leaf's own device when None).
-    Returns (tree, manifest)."""
+    dtype, on ``device`` (each template leaf's own device when None);
+    ``shardings`` (same structure or None) re-places each leaf on the
+    current mesh (elastic reshard). Returns (tree, manifest)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -106,10 +124,15 @@ def load(ckpt_dir: str, template, step: int | None = None, device=None):
                 f"shape mismatch for {key}: ckpt {tuple(t.shape)} vs "
                 f"template {tuple(tmpl.shape)}"
             )
-        return t.to(device=device if device is not None else tmpl.device,
-                    dtype=tmpl.dtype)
+        dev = device if device is not None else (
+            tmpl.to_local().device if shd.is_global(tmpl) else tmpl.device)
+        return t.to(device=dev, dtype=tmpl.dtype)
 
-    return map_with_keys(leaf, template), manifest
+    tree = map_with_keys(leaf, template)
+    if shardings is not None:
+        tree = tree_map(lambda t, sh: shd.distribute(t, sh.mesh, sh.spec),
+                        tree, shardings)
+    return tree, manifest
 
 
 def gc_old(ckpt_dir: str, keep: int = 3):

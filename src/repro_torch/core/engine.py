@@ -705,6 +705,79 @@ def make_array_runner(
     return array_runner
 
 
+def make_sharded_array_runner(
+    cfg: EngineConfig, ssd: SSDConfig, wl, plat: PlatformModel,
+    rounds: int, mesh=None, axis_name: str = "dev",
+    device: "torch.device | str | None" = None,
+) -> Callable[[EngineState], EngineState]:
+    """M-drive array runner sharded over the ranks of a 1-D mesh (the
+    reference's ``shard_map`` over a ``(axis_name,)`` mesh).
+
+    Where ``make_array_runner`` prices the whole array on one device, this
+    gives each rank M/n of the stacked ``EngineState``'s drives (its block
+    of the leading axis) and runs them through ``make_array_runner`` on the
+    rank's own device: on a card one captured CUDA graph a round, so no
+    collective runs inside a round. The ranks' final states are assembled
+    once after the run (one all-gather a dtype, ``_assemble``) into the
+    stacked global state every rank returns. M must be divisible by the
+    mesh size. Each rank passes the whole global state (every rank holds
+    it).
+
+    ``mesh`` defaults to the whole world on a ``(axis_name,)`` mesh of
+    ``device``'s type (``cuda`` unless named)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_axis_mesh, rank_device
+
+    wl = as_workload(wl)
+    if mesh is None:
+        mesh = make_axis_mesh(axis_name, device)
+    n = shd.axis_size(axis_name, mesh)
+    i = shd.axis_index(axis_name, mesh)
+    group = mesh.get_group(axis_name)
+    local_device = rank_device(mesh.device_type)
+    runners: dict = {}
+
+    def _run(states: EngineState) -> EngineState:
+        m = states.clock.shape[0]
+        if m % n != 0:
+            raise ValueError(
+                f"array of M={m} drives cannot shard over a mesh of "
+                f"{n} devices — M must be divisible by the mesh size "
+                "(pass a smaller mesh or resize the array)"
+            )
+        step = m // n
+        local = cuda_graph.map_leaves(
+            lambda x: x.narrow(0, i * step, step).to(local_device).clone(),
+            states)
+        if step not in runners:
+            runners[step] = make_array_runner(cfg, ssd, wl, plat, rounds,
+                                              device=local_device)
+        out = runners[step](local)
+        return _assemble(out, group, n) if n > 1 else out
+
+    return _run
+
+
+def _assemble(local: EngineState, group, n: int) -> EngineState:
+    """The ranks' blocks of a stacked state, all-gathered into the global
+    state: the leaves of each dtype flattened into one buffer, one
+    all-gather a dtype, the dtypes in one order on every rank (a set's
+    order differs between processes); the gathered buffer is
+    rank-major."""
+    from repro_torch.distributed import sharding as shd
+
+    leaves = cuda_graph.leaves(local)
+    gathered = {}
+    for dt in sorted({x.dtype for x in leaves}, key=str):
+        mine = [x for x in leaves if x.dtype == dt]
+        flat = torch.cat([x.reshape(-1) for x in mine])
+        g = shd._gather(flat, group, 0).reshape(n, -1)
+        parts = g.split([x.numel() for x in mine], dim=1)
+        gathered.update({id(x): p.reshape(n * x.shape[0], *x.shape[1:])
+                         for x, p in zip(mine, parts)})
+    return cuda_graph.map_leaves(lambda x: gathered[id(x)], local)
+
+
 def init_array_state(
     cfg: EngineConfig,
     ssd: SSDConfig,

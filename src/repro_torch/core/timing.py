@@ -287,6 +287,47 @@ def local_scope_update(
             comp.reshape(lead + (-1,)))
 
 
+def distributed_aggregated_update(
+    state: TimingState,
+    batch: RequestBatch,
+    ssd: SSDConfig,
+    axis_name: str,
+) -> Tuple[TimingState, torch.Tensor]:
+    """Global timing model across service units inside ``shard_map``.
+
+    Each rank contributes its local batch; the descriptors (arrival, lba,
+    valid) are all-gathered once per batch in one collective (the paper's
+    single critical section: the three rows packed as int32 words, the
+    arrival as its bit pattern), every rank runs the identical replicated
+    segmented scan over the concatenated global batch (dispatch order =
+    rank-major, preserving per-SQ order), and keeps its own slice of the
+    completions. ``state`` is replicated and evolves identically on every
+    rank."""
+    from repro_torch.distributed import sharding as shd
+
+    ax = shd.axis_index(axis_name)
+    n_local = batch.arrival.shape[0]
+    words = torch.stack([batch.arrival.view(I32), batch.lba.to(I32),
+                         batch.valid.to(I32)])
+    g = shd.all_gather(words, axis_name, dim=1)
+    g_arr = g[0].contiguous().view(F32)
+    g_lba = g[1].contiguous()
+    g_valid = g[2] != 0
+    g_batch = RequestBatch(
+        arrival=g_arr,
+        sq_id=torch.zeros_like(g_lba), slot=torch.zeros_like(g_lba),
+        opcode=torch.zeros_like(g_lba), lba=g_lba,
+        nblocks=torch.ones_like(g_lba), buf_id=torch.zeros_like(g_lba),
+        req_id=torch.zeros_like(g_lba), valid=g_valid,
+    )
+    inst, rr = assign_instances(state, g_batch, ssd)
+    completion, new_busy = aggregated_batch_times(
+        state.busy_until, g_arr, inst, g_valid, ssd
+    )
+    local = completion.narrow(0, ax * n_local, n_local)
+    return TimingState(new_busy, rr), local
+
+
 def update(
     state: TimingState,
     batch: RequestBatch,
@@ -294,12 +335,15 @@ def update(
     mode: str = "aggregated",
     use_compaction: bool = False,
     dispatch_order: "torch.Tensor | None" = None,
+    axis_name: "str | None" = None,
 ) -> Tuple[TimingState, torch.Tensor]:
     """Dispatch to the configured update mechanism.
 
     ``dispatch_order`` is an optional (N,) row permutation giving the
     order requests enter the shared timing state: the batch is gathered
     through it, priced, and completions scatter back (data movement only).
+    ``axis_name`` (inside ``shard_map``) prices the ranks' batches as one
+    global batch (``distributed_aggregated_update``).
     """
     if dispatch_order is not None:
         d = dispatch_order.long()
@@ -309,8 +353,11 @@ def update(
             lba=take(batch.lba, d),
             valid=take(batch.valid, d),
         )
-        state, comp_p = update(state, permuted, ssd, mode, use_compaction)
+        state, comp_p = update(state, permuted, ssd, mode, use_compaction,
+                               axis_name=axis_name)
         return state, unsort(comp_p, dispatch_order)
+    if axis_name is not None and mode == "aggregated":
+        return distributed_aggregated_update(state, batch, ssd, axis_name)
     if mode == "per_request":
         return per_request_update(state, batch, ssd)
     if mode == "aggregated":

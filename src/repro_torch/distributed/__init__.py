@@ -1,2 +1,4 @@
-"""Gradient compression (port of ``repro/distributed/compression.py``);
-the reference's sharding rules wait for multi-GPU training (ROADMAP A19)."""
+"""Distribution (port of ``repro/distributed``): the logical-axis sharding
+rules, ``constrain`` and ``shard_map`` on ``torch.distributed``
+(``sharding.py``), gradient compression (``compression.py``), and worlds
+of spawned ranks for tests and smoke runs (``world.py``)."""

@@ -7,11 +7,21 @@ kernels (``kernels/ops.py``: the CUDA ``flash_attention`` and
 tensors), forward only: they raise on inputs that require grad, as the
 reference's kernel path cannot be differentiated. Without it, prefill and
 training run the chunked plain-PyTorch ``flash_attention_jnp`` (with the
-flash backward) and decode the reference's einsum branch. One card
-holds whole tensors, so the reference's sharding constraints are the
-identity here; its tensor- and sequence-parallel attention
-(``_sharded_flash``'s mesh branch, ``_megatron_attention``) waits for
-ROADMAP A19.
+flash backward) and decode the reference's einsum branch.
+
+Under ``sharding.use_rules`` on a mesh with a ``model`` axis the
+reference's tensor- and sequence-parallel routes run on each rank's local
+blocks (``shard_map``): ``_sharded_flash`` shards the q heads over
+``model`` with K/V replicated, each rank mapping its heads to their GQA
+KV heads through the global head index (under ``use_pallas`` every rank
+launches the ``flash_attention`` kernel on its own heads), and
+``_megatron_attention`` all-gathers the seq-sharded residual, projects
+its q heads (column-parallel), runs the local flash core and finishes the
+row-parallel ``wo`` with a reduce-scatter onto the sequence. A global
+argument (a DTensor, or a plain tensor every rank holds whole) enters
+through ``shard_map`` with the residual's rule; inside a body the
+functions take local blocks, and the residual's rows are seq-sharded
+where ``sharding.global_seq`` exceeds them.
 """
 from __future__ import annotations
 
@@ -20,6 +30,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
 from repro_torch.models.config import ATTN_LOCAL, ModelConfig
@@ -54,15 +66,40 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
+def attn_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``attn_init``'s leaves (the reference's)."""
+    a = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+    }
+    if cfg.use_bias or cfg.qkv_bias:
+        a.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    if cfg.use_bias:
+        a["bo"] = ("embed",)
+    if cfg.qk_norm:
+        a["q_norm"] = ("head_dim",)
+        a["k_norm"] = ("head_dim",)
+    return a
+
+
 def _project_qkv(params, x, cfg: ModelConfig, positions,
-                 mrope_positions=None):
+                 mrope_positions=None, q_heads: "tuple | None" = None):
+    """q, k, v as (B, H, S, Dh). ``q_heads`` = (first, count) projects
+    only those q heads (a column block of ``wq``)."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = x @ params["wq"]
+    wq, bq = params["wq"], params.get("bq")
+    if q_heads is not None:
+        cols = slice(q_heads[0] * dh, (q_heads[0] + q_heads[1]) * dh)
+        hq, wq = q_heads[1], wq[:, cols]
+        bq = None if bq is None else bq[cols]
+    q = x @ wq
     k = x @ params["wk"]
     v = x @ params["wv"]
     if cfg.use_bias or cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        q, k, v = q + bq, k + params["bk"], v + params["bv"]
     q = q.reshape(b, s, hq, dh).transpose(1, 2)
     k = k.reshape(b, s, hkv, dh).transpose(1, 2)
     v = v.reshape(b, s, hkv, dh).transpose(1, 2)
@@ -77,11 +114,14 @@ def _project_qkv(params, x, cfg: ModelConfig, positions,
                                cfg.rope_theta)
         k = layers.apply_mrope(k, mrope_positions, cfg.mrope_sections,
                                cfg.rope_theta)
+    q = shd.constrain(q, ("batch", "heads", "seq", "head_dim"))
+    k = shd.constrain(k, ("batch", "kv_heads", "seq", "head_dim"))
+    v = shd.constrain(v, ("batch", "kv_heads", "seq", "head_dim"))
     return q, k, v
 
 
 def _flash_core(q, k, v, cfg: ModelConfig, window, scale):
-    """Causal flash attention over whole (one-card) tensors."""
+    """Flash attention on *local* tensors (no sharded dims inside)."""
     if cfg.use_pallas:
         return kops.flash_attention(
             q, k, v, causal=True, window=window,
@@ -108,6 +148,145 @@ def _out_proj(params, o, cfg: ModelConfig):
     return y
 
 
+def _model_size(mesh) -> int:
+    return shd.axis_sizes(mesh).get("model", 1)
+
+
+def _head_split(cfg: ModelConfig, mesh) -> "tuple | None":
+    """(first q head, count) of this rank when the q heads split over
+    ``model``, else None."""
+    msize = _model_size(mesh)
+    if msize == 1 or cfg.n_heads % msize != 0:
+        return None
+    hq_loc = cfg.n_heads // msize
+    return shd.axis_index("model", mesh) * hq_loc, hq_loc
+
+
+def _local_kv(k, v, cfg: ModelConfig, first: int, count: int):
+    """The GQA KV heads of q heads first .. first + count - 1."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    kv_idx = torch.div(first + torch.arange(count, device=k.device), group,
+                       rounding_mode="floor")
+    return k.index_select(1, kv_idx), v.index_select(1, kv_idx)
+
+
+def _sharded_flash(q, k, v, cfg: ModelConfig, window, scale):
+    """Tensor-parallel flash attention via explicit shard_map.
+
+    q heads are sharded over "model", K/V are replicated per shard (the
+    GQA KV block is small), each shard expands its local q heads' KV via
+    the global head map and runs the flash core on fully local tensors.
+    Called with global q, k, v it enters ``shard_map``; inside a body, q
+    holds this rank's heads (or all of them, which it then cuts) and K/V
+    every KV head."""
+    ctx = shd.current_context()
+    if ctx is None:
+        return _flash_core(q, k, v, cfg, window, scale)
+    mesh, rules = ctx
+    split = _head_split(cfg, mesh)
+    if split is None:
+        if not shd.in_region():
+            q, k, v = (shd.full_tensor(t) for t in (q, k, v))
+        return _flash_core(q, k, v, cfg, window, scale)
+    if not shd.in_region():
+        dp = shd.spec_for(("batch",), rules, mesh, (q.shape[0],))[0]
+        qspec, kvspec = P(dp, "model", None, None), P(dp, None, None, None)
+        return shd.shard_map(
+            lambda ql, kl, vl: _sharded_flash(ql, kl, vl, cfg, window, scale),
+            mesh, (qspec, kvspec, kvspec), qspec)(q, k, v)
+    first, count = split
+    if q.shape[1] == cfg.n_heads:
+        q = q.narrow(1, first, count)
+    k_sel, v_sel = _local_kv(k, v, cfg, first, count)
+    return _flash_core(q, k_sel, v_sel, cfg, window, scale)
+
+
+def _row_parallel_out(params, o_loc, cfg: ModelConfig, first: int,
+                      seq_sharded: bool):
+    """This rank's heads (B, h, S, Dh) through their rows of ``wo``, the
+    partial sums reduce-scattered onto the sequence (all-reduced where the
+    residual keeps it whole), then ``bo``."""
+    b, h, s, dh = o_loc.shape
+    rows = slice(first * dh, (first + h) * dh)
+    part = o_loc.transpose(1, 2).reshape(b, s, h * dh) @ params["wo"][rows]
+    y = (shd.psum_scatter(part, "model", 1) if seq_sharded
+         else shd.psum(part, "model"))
+    if cfg.use_bias:
+        y = y + params["bo"]
+    return y
+
+
+def _megatron_attention(params, x, cfg: ModelConfig, window, scale,
+                        positions, mrope_positions, mesh):
+    """Sequence-parallel attention block on one rank's blocks (the body of
+    the reference's ``shard_map``).
+
+    Megatron-SP schedule: all-gather the seq-sharded residual, run
+    column-parallel QKV (local q heads, replicated GQA KV), the local flash
+    core, then row-parallel output projection finished with a
+    reduce-scatter back onto the seq dim."""
+    first, count = _head_split(cfg, mesh)
+    x_full = shd.all_gather(x, "model", 1)
+    q, k, v = _project_qkv(params, x_full, cfg, positions, mrope_positions,
+                           q_heads=(first, count))
+    k_sel, v_sel = _local_kv(k, v, cfg, first, count)
+    o = _flash_core(q, k_sel, v_sel, cfg, window, scale)
+    return _row_parallel_out(params, o, cfg, first, True)
+
+
+def _residual_spec(x_shape, mesh, rules) -> P:
+    spec = shd.spec_for(("batch", "seq", "embed"), rules, mesh,
+                        tuple(x_shape))
+    if spec[2] is not None:
+        raise ValueError(
+            f"a residual of shape {tuple(x_shape)} would shard its embed "
+            f"dim ({spec}); the port's mesh path needs the batch to divide "
+            "over the data axes")
+    return spec
+
+
+def _global_entry(fn, mesh, rules, params, x, positions, mrope_positions,
+                  out_specs):
+    """``fn(params, x, positions, mrope_positions)`` on each rank's blocks
+    of a global residual ``x`` (B, S, D): the parameters replicated, the
+    positions split over the batch axes only."""
+    spec = _residual_spec(x.shape, mesh, rules)
+    dp = spec[0]
+
+    def body(pp, xl, pos, mpos):
+        with shd.region_dims(x.shape[0], positions.shape[1]):
+            return fn(pp, xl, pos, mpos)
+
+    return shd.shard_map(
+        body, mesh, (P(), spec, P(dp, None), P(None, dp, None)),
+        spec if out_specs is None else out_specs,
+    )(params, x, positions, mrope_positions)
+
+
+def _local_attention(params, x, cfg: ModelConfig, window, scale, positions,
+                     mrope_positions, mesh):
+    """The GSPMD route of ``attention_apply``/``attention_prefill`` on one
+    rank's residual block: the sequence gathered to project, q, k, v
+    through ``_sharded_flash`` (this rank's q heads where they split over
+    ``model``), ``wo`` row-parallel onto the residual's layout. Returns
+    (y, k, v) with k, v whole."""
+    s = positions.shape[1]
+    seq_sharded = x.shape[1] != s
+    x_full = shd.all_gather(x, "model", 1) if seq_sharded else x
+    split = _head_split(cfg, mesh)
+    q, k, v = _project_qkv(params, x_full, cfg, positions, mrope_positions,
+                           q_heads=split)
+    o = _sharded_flash(q, k, v, cfg, window, scale)
+    if split is not None:
+        y = _row_parallel_out(params, o, cfg, split[0], seq_sharded)
+    else:
+        y = _out_proj(params, o, cfg)
+        if seq_sharded:
+            y = shd.local_constrain(y, ("batch", "seq", "embed"),
+                                    (shd.global_batch(), s, y.shape[2]))
+    return y, k, v
+
+
 def attention_apply(
     params: dict,
     x: torch.Tensor,          # (B, S, D)
@@ -118,8 +297,27 @@ def attention_apply(
 ) -> torch.Tensor:
     """Training / prefill self-attention. Returns (B, S, D)."""
     window, scale = _window_scale(cfg, kind)
-    q, k, v = _project_qkv(params, x, cfg, positions, mrope_positions)
-    return _out_proj(params, _flash_core(q, k, v, cfg, window, scale), cfg)
+    ctx = shd.current_context()
+    if ctx is None:
+        q, k, v = _project_qkv(params, x, cfg, positions, mrope_positions)
+        return _out_proj(params, _flash_core(q, k, v, cfg, window, scale),
+                         cfg)
+    mesh, rules = ctx
+    if not shd.in_region():
+        return _global_entry(
+            lambda pp, xl, pos, mpos: attention_apply(pp, xl, cfg, kind, pos,
+                                                      mpos),
+            mesh, rules, params, x, positions, mrope_positions, None)
+    msize = _model_size(mesh)
+    s = positions.shape[1]
+    if (msize > 1 and cfg.n_heads % msize == 0 and s % msize == 0
+            and not cfg.use_pallas):
+        y = _megatron_attention(params, x, cfg, window, scale, positions,
+                                mrope_positions, mesh)
+        return shd.constrain(y, ("batch", "seq", "embed"))
+    y, _, _ = _local_attention(params, x, cfg, window, scale, positions,
+                               mrope_positions, mesh)
+    return shd.constrain(y, ("batch", "seq", "embed"))
 
 
 def attention_prefill(
@@ -127,14 +325,32 @@ def attention_prefill(
     cache_len: "int | None" = None, mrope_positions=None,
 ):
     """Prefill: as ``attention_apply``, and also the (k, v) cache, zero
-    padded along the sequence to ``cache_len``."""
+    padded along the sequence to ``cache_len``. On a mesh the cache keeps
+    this rank's block under the reference's constraint on k and v
+    (kv heads, else the sequence, over ``model``)."""
     window, scale = _window_scale(cfg, kind)
-    q, k, v = _project_qkv(params, x, cfg, positions, mrope_positions)
-    y = _out_proj(params, _flash_core(q, k, v, cfg, window, scale), cfg)
-    s = x.shape[1]
+    s = positions.shape[1]
+    ctx = shd.current_context()
+    if ctx is None:
+        q, k, v = _project_qkv(params, x, cfg, positions, mrope_positions)
+        y = _out_proj(params, _flash_core(q, k, v, cfg, window, scale), cfg)
+    else:
+        mesh, rules = ctx
+        if not shd.in_region():
+            raise ValueError("attention_prefill takes local blocks on a "
+                             "mesh; call transformer.prefill")
+        y, k, v = _local_attention(params, x, cfg, window, scale, positions,
+                                   mrope_positions, mesh)
+        y = shd.constrain(y, ("batch", "seq", "embed"))
     if cache_len is not None and cache_len > s:
         k = F.pad(k, (0, 0, 0, cache_len - s))
         v = F.pad(v, (0, 0, 0, cache_len - s))
+    if ctx is not None:
+        full = (shd.global_batch(), cfg.n_kv_heads, k.shape[2], cfg.d_head)
+        k = shd.local_constrain(k, ("batch", "kv_heads", "seq", "head_dim"),
+                                full)
+        v = shd.local_constrain(v, ("batch", "kv_heads", "seq", "head_dim"),
+                                full)
     return y, (k, v)
 
 
@@ -209,4 +425,5 @@ def attention_decode(
         o = torch.matmul(p.to(v_att.dtype).float(), v_att.float())
         o = o.reshape(b, hq, 1, cfg.d_head).to(x.dtype)
 
-    return _out_proj(params, o, cfg), (k_cache, v_cache)
+    y = shd.constrain(_out_proj(params, o, cfg), ("batch", "seq", "embed"))
+    return y, (k_cache, v_cache)

@@ -175,3 +175,23 @@ def norm_apply(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
     if kind == "rmsnorm":
         return rms_norm(x, params["w"])
     return layer_norm(x, params["w"], params["b"])
+
+
+def mlp_axes(gated: bool, use_bias: bool) -> dict:
+    """The logical axes of ``mlp_init``'s leaves (the reference's)."""
+    a = {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+    if gated:
+        a["w_gate"] = ("embed", "mlp")
+    if use_bias:
+        a["b_up"] = ("mlp",)
+        a["b_down"] = ("embed",)
+        if gated:
+            a["b_gate"] = ("mlp",)
+    return a
+
+
+def norm_axes(kind: str) -> dict:
+    """The logical axes of ``norm_init``'s leaves."""
+    if kind == "rmsnorm":
+        return {"w": ("embed",)}
+    return {"w": ("embed",), "b": ("embed",)}

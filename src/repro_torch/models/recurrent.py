@@ -21,6 +21,12 @@ the identity above 20 and ``F.logsigmoid`` takes another formula).
 Given a state, ``rglru_apply``, ``mlstm_apply`` and ``slstm_apply``
 write the new state into its tensors as well as returning it, so a
 captured decode step, which keeps its caches in place, carries them.
+
+Inside a ``shard_map`` body on a mesh (``transformer.forward`` under
+``sharding.use_rules``) each block takes the whole sequence of its rank's
+batch rows (``sharding.seq_whole`` gathers a seq-sharded residual) and
+returns its rows of the residual's layout (``sharding.seq_block``), next
+to the reference's ``constrain`` hook.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import segops, xla_math
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -139,12 +146,14 @@ def rglru_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     (B, W-1, lru), h (B, lru) float32), written in place when given.
     Returns (y (B, S, D), new_state)."""
     conv_state, h0 = state if state is not None else (None, None)
+    x = shd.seq_whole(x)
     gate = layers._act("gelu", x @ params["w_gate"])
     xr = x @ params["w_x"]
     xc, new_conv = _causal_conv(xr, params["conv_w"], params["conv_b"],
                                 conv_state)
     h, h_last = _rglru_core(xc, params, cfg, h0)
     y = (h * gate) @ params["w_out"]
+    y = shd.seq_block(shd.constrain(y, ("batch", "seq", "embed")))
     return y, _write_back(state, (new_conv, h_last))
 
 
@@ -257,6 +266,7 @@ def mlstm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 state: "tuple | None" = None, chunk: int = 256):
     """xLSTM mLSTM block. ``state`` = (conv_state, (C, n, m)), written in
     place when given."""
+    x = shd.seq_whole(x)
     b, s, d = x.shape
     hh, dh = cfg.n_heads, cfg.d_head
     conv_state, cell = state if state is not None else (None, None)
@@ -282,6 +292,7 @@ def mlstm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     h = h.transpose(1, 2).reshape(b, s, hh * dh).to(x.dtype)
     h = h + params["skip_scale"] * xc                     # learnable skip
     y = (h * F.silu(z)) @ params["w_down"]
+    y = shd.seq_block(shd.constrain(y, ("batch", "seq", "embed")))
     return y, _write_back(state, (new_conv, new_cell))
 
 
@@ -327,6 +338,7 @@ def slstm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     """Sequential sLSTM over time (stabilized exponential gating).
     ``state`` = (h, c, n, m), each (B, H, dh) float32, written in place
     when given."""
+    x = shd.seq_whole(x)
     b, s, d = x.shape
     hh, dh = cfg.n_heads, cfg.d_head
     xin = (x @ params["w_in"]).float() + params["b_in"]
@@ -360,6 +372,7 @@ def slstm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     out = torch.stack(hs, dim=1).reshape(b, s, hh * dh)      # (B,S,dh*H)
     out = layers.rms_norm(out.to(x.dtype), params["norm"])
     y = out @ params["w_out"]
+    y = shd.seq_block(shd.constrain(y, ("batch", "seq", "embed")))
     return y, _write_back(state, (h, c, n, m))
 
 
@@ -371,3 +384,24 @@ def slstm_init_state(cfg: ModelConfig, batch: int, dtype, device,
     z = dict(dtype=torch.float32, device=device)
     return (torch.zeros(shape, **z), torch.zeros(shape, **z),
             torch.ones(shape, **z), torch.zeros(shape, **z))
+
+
+RGLRU_AXES = {
+    "w_x": ("embed", "lru"), "w_gate": ("embed", "lru"),
+    "conv_w": ("conv", "lru"), "conv_b": ("lru",),
+    "w_input_gate": ("lru", "lru"), "w_rec_gate": ("lru", "lru"),
+    "lambda_": ("lru",), "w_out": ("lru", "embed"),
+}
+MLSTM_AXES = {
+    "w_up": ("embed", "heads"), "w_z": ("embed", "heads"),
+    "conv_w": ("conv", "heads"), "conv_b": ("heads",),
+    "w_q": ("heads", "heads"), "w_k": ("heads", "heads"),
+    "w_v": ("heads", "heads"),
+    "w_if": ("heads", None), "b_if": (None,),
+    "w_down": ("heads", "embed"), "skip_scale": ("heads",),
+}
+SLSTM_AXES = {
+    "w_in": ("embed", "heads"), "b_in": ("heads",),
+    "w_rec": (None, "head_dim", "head_dim"),
+    "norm": ("heads",), "w_out": ("heads", "embed"),
+}

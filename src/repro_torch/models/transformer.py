@@ -14,6 +14,18 @@ recomputes each period in the backward). Caches keep the same layout
 (per pattern member the block's cache tree, every leaf stacked over
 periods: (k, v) for attention, (conv, h) for RG-LRU, (conv, (C, n, m))
 for mLSTM, (h, c, n, m) for sLSTM) and decode writes them in place.
+
+Under ``sharding.use_rules`` ``forward``, ``loss_fn`` and ``prefill``
+take global arrays (DTensors, or plain tensors every rank holds whole)
+and run on each rank's blocks (``shard_map``): the residual stream is
+split over the batch axes and, where the sequence divides, over
+``model`` (the reference's ``("batch", "seq", "embed")`` rule), the
+positions over the batch axes only; the attention, MoE and recurrent
+blocks take their mesh routes, and the token-local layers (norms, MLPs,
+the loss's vocab products) run on the local rows. ``loss_fn`` returns the
+global loss, whose gradient on each rank is that rank's part
+(``sharding.reduce_gradients`` sums them). ``model_axes`` gives the
+reference's logical axes of every parameter.
 """
 from __future__ import annotations
 
@@ -24,6 +36,8 @@ import torch.utils.checkpoint
 
 from repro_torch.core.types import resolve_device
 from repro_torch.core.xla_math import const_div
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import P
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, recurrent
 from repro_torch.models.config import (
@@ -210,6 +224,53 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def block_axes(cfg: ModelConfig, kind: str) -> dict:
+    """Logical axes for one block (the reference's ``block_axes``)."""
+    a: dict = {"norm1": layers.norm_axes(cfg.norm)}
+    mlp = layers.mlp_axes(cfg.mlp_gated, cfg.use_bias)
+    if kind in _ATTN_KINDS:
+        a["attn"] = attn.attn_axes(cfg)
+        if not cfg.parallel_block:
+            a["norm2"] = layers.norm_axes(cfg.norm)
+        if cfg.n_experts:
+            a["moe"] = moe.moe_axes(cfg)
+        else:
+            a["mlp"] = mlp
+        if cfg.post_norms:
+            a["post1"] = layers.norm_axes(cfg.norm)
+            a["post2"] = layers.norm_axes(cfg.norm)
+    elif kind == RGLRU:
+        a["rec"] = dict(recurrent.RGLRU_AXES)
+        a["norm2"] = layers.norm_axes(cfg.norm)
+        a["mlp"] = mlp
+    elif kind == MLSTM:
+        a["cell"] = dict(recurrent.MLSTM_AXES)
+    elif kind == SLSTM:
+        a["cell"] = dict(recurrent.SLSTM_AXES)
+    else:
+        raise ValueError(kind)
+    return a
+
+
+def _prepend_layers(axes_tree):
+    if shd._is_axes(axes_tree):
+        return ("layers", *axes_tree)
+    return {k: _prepend_layers(v) for k, v in axes_tree.items()}
+
+
+def model_axes(cfg: ModelConfig) -> dict:
+    """Logical-axis tree mirroring init_model's structure."""
+    a: dict = {"embed": ("vocab", "embed")}
+    a["periods"] = tuple(
+        _prepend_layers(block_axes(cfg, kind)) for kind in cfg.pattern
+    )
+    a["remainder"] = tuple(block_axes(cfg, kind) for kind in cfg.remainder)
+    a["final_norm"] = layers.norm_axes(cfg.norm)
+    if not cfg.tie_embeddings:
+        a["lm_head"] = ("embed", "vocab")
+    return a
+
+
 def _layers(p: dict, cfg: ModelConfig):
     """(params, kind, period index or None, member index) of every layer
     in execution order: the periods, then the remainder."""
@@ -230,7 +291,7 @@ def _embed_tokens(p, cfg: ModelConfig, tokens=None, embeds=None):
     if cfg.embed_scale_by_dim:
         h = h * torch.full((), cfg.d_model ** 0.5, dtype=h.dtype,
                            device=h.device)
-    return h
+    return shd.constrain(h, ("batch", "seq", "embed"))
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -259,6 +320,36 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
+def _on_mesh(body, cfg: ModelConfig, p, tokens, embeds, positions,
+             mrope_positions, extra=(), extra_specs=(), out_specs=None):
+    """``body(p, tokens, embeds, positions, mrope_positions, *extra)`` on
+    each rank's blocks of a global batch: tokens (B, S) and embeds
+    (B, S, D) as the residual's rule splits them, positions (B, S) and
+    M-RoPE ids (3, B, S) over the batch axes only (default: 0 .. S-1),
+    ``extra`` by ``extra_specs``. ``out_specs`` is a function of the
+    residual's spec (default: the residual and a replicated aux)."""
+    mesh, rules = shd.current_context()
+    x = tokens if embeds is None else embeds
+    b, s = x.shape[:2]
+    spec = attn._residual_spec((b, s, cfg.d_model), mesh, rules)
+    if positions is None:
+        positions = _positions(b, s, x.device)
+    mrope_positions = _default_mrope(cfg, positions, mrope_positions)
+    dp = spec[0]
+
+    def local(pp, tok, emb, pos, mpos, *rest):
+        with shd.region_dims(b, s):
+            return body(pp, tok, emb, pos, mpos, *rest)
+
+    outs = out_specs(spec) if out_specs else (spec, P())
+    return shd.shard_map(
+        local, mesh,
+        (P(), P(spec[0], spec[1]), spec, P(dp, None), P(None, dp, None),
+         *extra_specs),
+        outs,
+    )(p, tokens, embeds, positions, mrope_positions, *extra)
+
+
 def forward(p: dict, cfg: ModelConfig, tokens=None, embeds=None,
             positions=None, mrope_positions=None):
     """Backbone forward of (B, S) token ids or (B, S, D) embeds. Returns
@@ -269,6 +360,11 @@ def forward(p: dict, cfg: ModelConfig, tokens=None, embeds=None,
     only its input is kept, the reference's ``jax.checkpoint`` with
     ``nothing_saveable`` around its scanned period. The remainder layers
     are not wrapped, as in the reference."""
+    if shd.current_context() is not None and not shd.in_region():
+        return _on_mesh(
+            lambda pp, tok, emb, pos, mpos: forward(pp, cfg, tok, emb, pos,
+                                                    mpos),
+            cfg, p, tokens, embeds, positions, mrope_positions)
     h = _embed_tokens(p, cfg, tokens, embeds)
     b, s = h.shape[:2]
     if positions is None:
@@ -290,7 +386,8 @@ def forward(p: dict, cfg: ModelConfig, tokens=None, embeds=None,
     for pp in _unstack(p["periods"], cfg.n_periods):
         if cfg.remat:
             h, a = torch.utils.checkpoint.checkpoint(
-                period_fn, h, pp, use_reentrant=False)
+                period_fn, h, pp, use_reentrant=False,
+                context_fn=shd.recompute_context)
         else:
             h, a = period_fn(h, pp)
         aux = aux + a
@@ -319,18 +416,9 @@ def _chunk_loss(h_c, w, y_c, final_softcap):
     return torch.sum(logz - gold)
 
 
-def loss_fn(p: dict, cfg: ModelConfig, tokens, labels, embeds=None,
-            mrope_positions=None) -> torch.Tensor:
-    """Mean next-token cross-entropy (plus the MoE aux loss), the vocab
-    projection chunked over S by ``min(cfg.loss_chunk, S)`` so the
-    (B, S, V) logits never materialize; each chunk is recomputed in the
-    backward (checkpointed, as the reference's ``jax.checkpoint`` around
-    its chunk step) and the float32 running sum adds the chunks in
-    order; the mean divides as the compiled reference does
-    (``xla_math.const_div``)."""
-    h, aux = forward(p, cfg, tokens=tokens, embeds=embeds,
-                     mrope_positions=mrope_positions)
-    b, s, _ = h.shape
+def _loss_sum(p: dict, cfg: ModelConfig, h, labels) -> torch.Tensor:
+    """The float32 sum of the chunks' losses over ``h``'s (B, S) rows."""
+    s = h.shape[1]
     w = _head_matrix(p, cfg)
     c = min(cfg.loss_chunk, s)
     if s % c:
@@ -340,19 +428,102 @@ def loss_fn(p: dict, cfg: ModelConfig, tokens, labels, embeds=None,
         total = total + torch.utils.checkpoint.checkpoint(
             _chunk_loss, h[:, i:i + c], w, labels[:, i:i + c],
             cfg.final_softcap, use_reentrant=False)
-    return const_div(total, b * s) + aux
+    return total
+
+
+def loss_fn(p: dict, cfg: ModelConfig, tokens, labels, embeds=None,
+            mrope_positions=None) -> torch.Tensor:
+    """Mean next-token cross-entropy (plus the MoE aux loss), the vocab
+    projection chunked over S by ``min(cfg.loss_chunk, S)`` so the
+    (B, S, V) logits never materialize; each chunk is recomputed in the
+    backward (checkpointed, as the reference's ``jax.checkpoint`` around
+    its chunk step) and the float32 running sum adds the chunks in
+    order; the mean divides as the compiled reference does
+    (``xla_math.const_div``).
+
+    On a mesh each rank sums the losses of its own rows (chunked over its
+    block of the sequence), and the global loss is the ``psum`` of the
+    ranks' parts, each part its mean share plus aux / ranks; the returned
+    value is the global loss and its gradient on a rank is that rank's
+    part's. Where the rules leave the batch or the sequence whole on some
+    mesh axes (a dim that does not divide), the ranks along them hold the
+    same rows, and each one's mean share is divided by their number."""
+    ctx = shd.current_context()
+    if ctx is not None and not shd.in_region():
+        mesh, rules = ctx
+        b, s = (tokens if embeds is None else embeds).shape[:2]
+        axes = tuple(shd.axis_sizes(mesh))
+        n = shd.axis_size(axes, mesh)
+        rows = attn._residual_spec((b, s, cfg.d_model), mesh, rules)[:2]
+        copies = n // shd.axis_size(
+            shd._entry_axes(rows[0]) + shd._entry_axes(rows[1]), mesh)
+
+        def body(pp, tok, emb, pos, mpos, lab):
+            h, aux = forward(pp, cfg, tok, emb, pos, mpos)
+            share = const_div(_loss_sum(pp, cfg, h, lab), b * s)
+            if copies > 1:
+                share = share / copies
+            part = share + aux / n
+            return part + (shd.psum(part.detach(), axes) - part.detach())
+
+        return _on_mesh(
+            body, cfg, p, tokens, embeds, None, mrope_positions,
+            extra=(labels,), extra_specs=(P(*rows),),
+            out_specs=lambda spec: P())
+    h, aux = forward(p, cfg, tokens=tokens, embeds=embeds,
+                     mrope_positions=mrope_positions)
+    b, s, _ = h.shape
+    return const_div(_loss_sum(p, cfg, h, labels), b * s) + aux
 
 
 # ---------------------------------------------------------------------------
 # Serving: prefill + decode.
 # ---------------------------------------------------------------------------
 
+def _cache_specs(cfg: ModelConfig, b: int, cache_len: int, mesh, rules):
+    """Specs of ``prefill``'s caches on a mesh: attention k/v under the
+    reference's constraint (kv heads, else the sequence, over ``model``),
+    recurrent states over the batch axes."""
+    kv = shd.spec_for(("batch", "kv_heads", "seq", "head_dim"), rules, mesh,
+                      (b, cfg.n_kv_heads, cache_len, cfg.d_head))
+    dp = kv[0]
+
+    def member(kind, lead):
+        if kind in _ATTN_KINDS:
+            return (P(*lead, *kv), P(*lead, *kv))
+        meta = block_init_cache(cfg, kind, b, cache_len, "meta")
+
+        def spec(t):
+            return P(*lead, dp, *([None] * (t.dim() - 1)))
+
+        return tuple(spec(t) if isinstance(t, torch.Tensor)
+                     else tuple(spec(u) for u in t) for t in meta)
+
+    return (tuple(member(kind, (None,)) for kind in cfg.pattern),
+            tuple(member(kind, ()) for kind in cfg.remainder))
+
+
 def prefill(p: dict, cfg: ModelConfig, tokens=None, embeds=None,
             cache_len: "int | None" = None, mrope_positions=None):
     """Run the prompt (token ids or embeds); returns (last-token logits
-    (B, V), caches)."""
+    (B, V), caches). On a mesh each rank runs its blocks and the caches
+    are global arrays of ``_cache_specs``' layout."""
+    if shd.current_context() is not None and not shd.in_region():
+        mesh, rules = shd.current_context()
+        x = tokens if embeds is None else embeds
+        b, s = x.shape[:2]
+        clen = cache_len or s
+        return _on_mesh(
+            lambda pp, tok, emb, pos, mpos: prefill(pp, cfg, tok, emb, clen,
+                                                    mpos),
+            cfg, p, tokens, embeds, None, mrope_positions,
+            out_specs=lambda spec: (P(spec[0], None),
+                                    _cache_specs(cfg, b, clen, mesh, rules)))
     h = _embed_tokens(p, cfg, tokens, embeds)
     b, s = h.shape[:2]
+    # In a body the rows may be a block of the sequence; the positions
+    # and the cache cover the whole of it.
+    s = shd.global_seq() or s
     cache_len = cache_len or s
     positions = _positions(b, s, h.device)
     mrope_positions = _default_mrope(cfg, positions, mrope_positions)
@@ -364,7 +535,11 @@ def prefill(p: dict, cfg: ModelConfig, tokens=None, embeds=None,
         (rem if i is None else per_member[j]).append(cache)
     caches = tuple(_stack(cs) for cs in per_member)
     h = layers.norm_apply(cfg.norm, p["final_norm"], h)
-    logits = logits_fn(p, cfg, h[:, -1:])
+    last = h[:, -1:]
+    if shd.in_region():
+        # The last position lives on the last model rank's block.
+        last = shd.all_gather(last, "model", 1)[:, -1:]
+    logits = logits_fn(p, cfg, last)
     return logits[:, 0], (caches, tuple(rem))
 
 

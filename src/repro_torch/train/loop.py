@@ -1,13 +1,23 @@
 """Training loop (port of ``repro/train/loop.py``): gradient accumulation,
 compressed gradients, checkpoint/restart and failure injection, on one
-device.
+device or, under ``sharding.use_rules``, on a mesh of ranks.
 
 The loop is host-driven (one ``train_step`` per iteration) so the fault
 tolerance (checkpoint cadence, failure injection, deterministic data
 re-dispatch) lives in ordinary Python around the step. The step takes
 the gradient of ``transformer.loss_fn`` with autograd and updates the
 parameters, m and v in place (the reference donates them to its jitted
-step). Multi-GPU training waits for ROADMAP A19.
+step).
+
+On a mesh the parameters and the AdamW state are DTensors: replicated,
+as the reference's command leaves them uncommitted, or placed by the
+caller (``sharding.sharding_tree(transformer.model_axes(cfg), ...)``).
+The global batch is drawn on every rank and ``loss_fn`` splits it by the
+rules; each rank's gradient is its part, summed over the ranks by
+``sharding.reduce_gradients`` (GSPMD's all-reduce), and AdamW updates
+each rank's blocks with the global gradient norm. Rank 0 alone writes a
+checkpoint (the parameters gathered), and every rank reads it back onto
+the current mesh.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ from repro_torch import checkpoint
 from repro_torch.core.xla_math import const_div
 from repro_torch.core.types import resolve_device
 from repro_torch.distributed import compression
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import data as data_lib
@@ -52,7 +63,11 @@ def value_and_grad(params, cfg: ModelConfig, tokens, labels):
         loss = transformer.loss_fn(unflatten(params, flat), cfg, tokens,
                                    labels)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    return loss.detach(), unflatten(params, grads)
+    grads = unflatten(params, grads)
+    if shd.is_global(loss):
+        loss = loss.to_local()
+        grads = shd.reduce_gradients(params, grads)
+    return loss.detach(), grads
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
@@ -85,9 +100,18 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         if tcfg.compress_grads:
             grads, residuals = compression.compress_tree(grads, residuals)
 
-        params, opt_state, metrics = opt_lib.apply_updates(
-            params, grads, opt_state, tcfg.opt
-        )
+        if shd.is_global(leaves(params)[0]):
+            # Each rank updates its blocks, clipped by the global norm.
+            _, local_opt, metrics = opt_lib.apply_updates(
+                shd.local_tree(params), shd.local_tree(grads),
+                shd.local_tree(opt_state), tcfg.opt,
+                gnorm=shd.global_norm(grads))
+            opt_state = dict(opt_state, step=shd.distribute(
+                local_opt["step"], opt_state["step"].device_mesh, shd.P()))
+        else:
+            params, opt_state, metrics = opt_lib.apply_updates(
+                params, grads, opt_state, tcfg.opt
+            )
         metrics["loss"] = loss
         return params, opt_state, residuals, metrics
 
@@ -134,12 +158,17 @@ def train(
     t0 = time.time()
 
     params, opt_state, residuals = cold_start(cfg, tcfg, device)
+    ctx = shd.current_context()
     start = checkpoint.latest_step(tcfg.ckpt_dir) if resume else None
     if start is not None:
         state, _ = checkpoint.load(
             tcfg.ckpt_dir, {"params": params, "opt": opt_state}, step=start
         )
         params, opt_state = state["params"], state["opt"]
+    if ctx is not None:
+        params = shd.distribute_tree(params, ctx[0])
+        opt_state = shd.distribute_tree(opt_state, ctx[0])
+    if start is not None:
         step0 = start
         log(f"resumed from step {start}")
     else:

@@ -100,13 +100,17 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def apply_updates(
-    params, grads, state: dict, cfg: AdamWConfig
+    params, grads, state: dict, cfg: AdamWConfig,
+    gnorm: "torch.Tensor | None" = None,
 ) -> Tuple[Any, dict, dict]:
     """One AdamW step. Returns (params', state', metrics); params, m and v
-    are updated in place and returned."""
+    are updated in place and returned. ``gnorm`` is the gradient's global
+    norm where the caller holds only blocks of it (default: the norm of
+    ``grads``)."""
     step = state["step"] + 1
     dev = step.device
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(
         torch.full((), cfg.grad_clip, dtype=torch.float32, device=dev)
         / torch.clamp(gnorm, min=1e-12), max=1.0)

@@ -440,8 +440,10 @@ def test_launch_train_smoke(tmp_path, capsys):
     assert res.step == 4 and res.restarts == 0
     assert checkpoint.latest_step(str(tmp_path)) == 4
     assert "done: step=4" in capsys.readouterr().out
-    with pytest.raises(ValueError, match="A19"):
+    # A mesh of ranks runs under torchrun (tests/test_torch_mesh_train.py
+    # runs one); without a process group of its ranks it is refused.
+    with pytest.raises(ValueError, match="torchrun"):
         launch_train.main(["--data", "2", "--device", "cpu"])
-    with pytest.raises(ValueError, match="A19"):
+    with pytest.raises(ValueError, match="process group"):
         launch_train.setup("starcoder2-3b", smoke=True, model=2,
                            device="cpu")
