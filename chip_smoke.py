@@ -208,7 +208,13 @@ seconds, ``phase_s``):
                    with an injected crash (one restart, the losses of an
                    uninterrupted run); and the attention kernels' refusal
                    of autograd on the card. The path launches none of the
-                   seven kernels
+                   seven kernels. Its ``roofline`` record is
+                   ``launch.roofline``'s count of that same full-width step
+                   on fake tensors (in a CPU worker, while the card works):
+                   its three terms over the H100's published peaks, the
+                   bound, its term and the predicted peak memory beside
+                   the profiled device ms, which must not be below the
+                   bound
   mesh             several ranks: a world of 4 spawned processes, NCCL with
                    a card each where there are 4 cards, else gloo with all
                    of them on this one (built after the kernels, so no rank
@@ -429,11 +435,8 @@ def _cpu_state(cfg, ssd, wl, plat, rounds, num_devices):
         device="cpu"))
 
 
-def cpu_state(cfg, ssd, wl, rounds, num_devices=1, plat=None):
-    """A future of the port's eager run on the CPU (``engine.simulate``):
-    its final state as numpy leaves, computed in a worker process."""
-    from repro_torch.core.types import PlatformModel
-
+def cpu_pool():
+    """The worker processes (started at the first call)."""
     if not _CPU_POOL:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
@@ -441,8 +444,16 @@ def cpu_state(cfg, ssd, wl, rounds, num_devices=1, plat=None):
         _CPU_POOL.append(ProcessPoolExecutor(
             CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
             initializer=_cpu_worker_init, initargs=(str(SRC),)))
-    return _CPU_POOL[0].submit(_cpu_state, cfg, ssd, wl,
-                               plat or PlatformModel(), rounds, num_devices)
+    return _CPU_POOL[0]
+
+
+def cpu_state(cfg, ssd, wl, rounds, num_devices=1, plat=None):
+    """A future of the port's eager run on the CPU (``engine.simulate``):
+    its final state as numpy leaves, computed in a worker process."""
+    from repro_torch.core.types import PlatformModel
+
+    return cpu_pool().submit(_cpu_state, cfg, ssd, wl,
+                             plat or PlatformModel(), rounds, num_devices)
 
 
 def stop_cpu_workers() -> None:
@@ -4689,6 +4700,57 @@ def full_width_steps(dev):
     return rec
 
 
+def train_roofline(batch: int, seq: int) -> dict:
+    """``launch.roofline``'s terms of ``full_width_steps``' step
+    (``loop.make_train_step`` of starcoder2-3b FULL through
+    ``launch.train.setup``, one device, batch x seq), counted once on
+    fake tensors on the CPU: no value is computed and nothing is
+    allocated. Runs in a CPU worker."""
+    from repro_torch.launch import roofline, specs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import loop
+
+    t0 = time.perf_counter()
+    cfg, tcfg, _, _ = launch_train.setup("starcoder2-3b", batch=batch,
+                                         seq=seq, device="cpu")
+    mode = specs.fake_mode()
+    params = specs.abstract_params(cfg, mode)
+    args = (params, specs.abstract_opt_state(params, mode),
+            specs.train_batch_specs(cfg, batch, seq, mode)[0])
+    step = loop.make_train_step(cfg, tcfg)
+    counts = roofline.count_step(lambda p, o, b: step(p, o, {}, b), args,
+                                 mode)
+    out = roofline.analyze(counts, 1,
+                           6.0 * cfg.active_param_count() * batch * seq)
+    out["flops_by_op"] = counts["flops_by_op"]
+    out["count_s"] = time.perf_counter() - t0
+    return out
+
+
+def roofline_record(roof: dict, full: dict) -> dict:
+    """The counted step's terms beside the measured one's device ms."""
+    bound_ms = roof["roofline_bound_s"] * 1e3
+    device_ms = full["profiled_step"]["device_ms_per_round"]
+    return {
+        "source": "repro_torch.launch.roofline count_step + analyze of "
+                  "loop.make_train_step, fake tensors on the CPU",
+        "peaks": "H100 SXM, dense, 700 W: 989e12 bf16 FLOP/s, 3.35e12 B/s "
+                 "HBM, 450e9 B/s NVLink",
+        **{k: roof[k] for k in (
+            "flops_per_device", "bytes_per_device", "flops_by_op",
+            "compute_s", "memory_s", "collective_s", "bottleneck",
+            "model_flops_total", "useful_compute_ratio",
+            "hbm_argument_bytes", "hbm_temp_bytes", "hbm_peak_bytes",
+            "count_s")},
+        "roofline_bound_s": roof["roofline_bound_s"],
+        "bound_ms": bound_ms,
+        "predicted_peak_gb": roof["hbm_peak_bytes"] / 1e9,
+        "measured_device_ms": device_ms,
+        "measured_peak_memory_gb": full["peak_memory_gb"],
+        "measured_over_bound": device_ms / bound_ms,
+    }
+
+
 def train_restart(dev):
     """``train()`` on starcoder2-3b SMOKE on the card, 8 steps with a
     checkpoint every 2, crashed at step 5 and restarted from step 4,
@@ -4743,6 +4805,8 @@ def phase_train(dev, card):
 
     from repro_torch import configs
 
+    # The full-width step's count, in a CPU worker while the card works.
+    roof = cpu_pool().submit(train_roofline, TRAIN_BATCH, TRAIN_SEQ)
     g2 = configs.get_config("gemma2-27b")
     vjp = [
         vjp_case("starcoder2-3b attention", 2, 24, 2, 1024, 128, None, None,
@@ -4761,9 +4825,10 @@ def phase_train(dev, card):
     torch.cuda.empty_cache()
     restart = train_restart(dev)
     refusal = autograd_refusal(dev)
+    roof = roofline_record(roof.result(), full)
     emit({"phase": "train", "card": card, "flash_vjp": vjp,
           "smoke_card_vs_cpu": smoke, "full_width_2_layers": cut,
-          "full_width": full, "restart": restart,
+          "full_width": full, "roofline": roof, "restart": restart,
           "autograd_refusal": refusal})
     for rec in vjp:
         check(max(rec["rel_err"].values()) <= VJP_CARD_REL,
@@ -4779,6 +4844,9 @@ def phase_train(dev, card):
           and restart["losses_equal"], f"train() restart: {restart}")
     check(all("use_pallas=False" in v for v in refusal.values()),
           f"attention kernels under autograd: {refusal}")
+    check(roof["measured_device_ms"] >= roof["bound_ms"],
+          f"the full-width step's {roof['measured_device_ms']} device ms "
+          f"beat its roofline bound of {roof['bound_ms']} ms")
     return full["kernel_launches"]
 
 
@@ -5145,7 +5213,7 @@ def mesh_train(rank, dev, inp):
     from repro_torch.models import transformer
     from repro_torch.train import data, loop
     from repro_torch.train import optimizer as opt_lib
-    from repro_torch.train.tree import jax_leaves
+    from repro_torch.train import tree as port_tree
 
     cfg = configs.get_config("starcoder2-3b").replace(
         n_layers=MESH_TRAIN_LAYERS, dtype="float32", use_pallas=False)
@@ -5171,7 +5239,7 @@ def mesh_train(rank, dev, inp):
                 # leaf's largest.
                 _, g = loop.value_and_grad(p, cfg, bt["tokens"],
                                            bt["labels"])
-                for k, t in jax_leaves(g):
+                for k, t in port_tree.jax_leaves(g):
                     a = t.abs()
                     least, top = grads.get(k, (a, 0.0))
                     grads[k] = (torch.minimum(least, a),
@@ -5221,21 +5289,22 @@ def mesh_train(rank, dev, inp):
             p, o = state["params"], state["opt"]
             rec["resumed_sharded_leaves"] = sum(
                 any(pl.is_shard() for pl in t.placements)
-                for _, t in jax_leaves(p))
+                for _, t in port_tree.jax_leaves(p))
             p, o, last, last_norm = run(p, o, manifest["step"], 1)
             losses += last + [next_loss(p)]
             norms += last_norm
-            resumed = {k: shd.full_tensor(t) for k, t in jax_leaves(p)}
+            resumed = {k: shd.full_tensor(t)
+                       for k, t in port_tree.jax_leaves(p)}
             del p, o, state
     rec["losses"] = losses
     rec["grad_norms"] = norms
     if rank == 0:
         p, o = fresh()
-        init = {k: t.clone() for k, t in jax_leaves(p)}
+        init = {k: t.clone() for k, t in port_tree.jax_leaves(p)}
         grads = {}
         p, o, want, want_norms = run(p, o, 0, 2, grads)
         before = next_loss(p)
-        second = {k: t.clone() for k, t in jax_leaves(p)}
+        second = {k: t.clone() for k, t in port_tree.jax_leaves(p)}
         p, o, last, last_norm = run(p, o, 2, 1, grads)
         want += last + [next_loss(p)]
         want_norms += last_norm
@@ -5250,7 +5319,7 @@ def mesh_train(rank, dev, inp):
         rec["third_step_loss_move_rel"] = abs(want[3] - before) / abs(
             want[3])
         change, third, held_share = {}, {}, {}
-        for k, t in jax_leaves(p):
+        for k, t in port_tree.jax_leaves(p):
             least, top = grads[k]
             held = least >= MESH_TRAIN_GRAD_FLOOR * top
             want_d = (t - init[k])[held]

@@ -28,7 +28,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import sharding as shd
-from repro_torch.train.tree import jax_leaves, map_with_keys, tree_map
+from repro_torch.train.tree import map_with_keys, jax_leaves, tree_map
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:

@@ -227,7 +227,9 @@ def pow_f32(x: torch.Tensor, y: "float | torch.Tensor") -> torch.Tensor:
     top = tmp & ~0x7FFFFF
     z = (ix - top).to(torch.int32).view(F32).to(F64)
     k = (top >> 23).to(F64)
-    invc, logc = invc_t[i], logc_t[i]
+    # ``take``, not ``t[i]``: a 0-d index tensor would be read back to
+    # the host as a Python integer.
+    invc, logc = torch.take(invc_t, i), torch.take(logc_t, i)
     a0, a1, a2, a3, a4 = (_h(s) for s in _LOG2_POLY)
     r = _fma64(z, invc, -1.0)
     y0 = k + logc
@@ -245,7 +247,7 @@ def pow_f32(x: torch.Tensor, y: "float | torch.Tensor") -> torch.Tensor:
     n = kd.view(torch.int64) - _EXP2_SHIFT_BITS
     kd = kd - _EXP2_SHIFT
     r = xd - kd
-    s = (exp2_t[(n & 31).long()] + n * (1 << 47)).view(F64)
+    s = (torch.take(exp2_t, (n & 31).long()) + n * (1 << 47)).view(F64)
     c0, c1, c2 = (_h(s_) for s_ in _EXP2_POLY)
     zz = _fma64(r, c0, c1)
     r2 = r * r

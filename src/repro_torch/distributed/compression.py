@@ -19,7 +19,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.xla_math import _fma32, const_div
-from repro_torch.train.tree import jax_leaves, tree_map
+from repro_torch.train.tree import tree_map, jax_leaves
 
 BLOCK = 256
 

@@ -423,11 +423,14 @@ def seq_whole(x: torch.Tensor) -> torch.Tensor:
 
 def seq_block(y: torch.Tensor) -> torch.Tensor:
     """The inverse of ``seq_whole``: a whole-sequence (B_loc, S, D) value
-    cut to this rank's block of the residual's rule."""
+    cut to this rank's block of the residual's rule along the sequence
+    (a body's residual holds its embed dim whole: where the batch does
+    not divide, as in a one-row decode, the rule would give it the data
+    axes)."""
     s = global_seq()
     if s is None:
         return y
-    return local_constrain(y, ("batch", "seq", "embed"),
+    return local_constrain(y, ("batch", "seq", None),
                            (global_batch(), s, y.shape[2]))
 
 
@@ -658,10 +661,10 @@ def global_norm(grads) -> torch.Tensor:
     """sqrt of the float32 sum of squares over every leaf of a gradient
     tree of DTensors, the leaves added in JAX's order: each leaf's local
     sum summed over the mesh axes that shard it."""
-    from repro_torch.train.tree import jax_leaves
+    from repro_torch.train import tree
 
     total = 0
-    for _, g in jax_leaves(grads):
+    for _, g in tree.jax_leaves(grads):
         local = g.to_local() if is_global(g) else g
         sq = torch.sum(torch.square(local.to(torch.float32)))
         if is_global(g):

@@ -370,6 +370,7 @@ def attention_decode(
     cfg: ModelConfig,
     kind: str,
     mrope_positions: "torch.Tensor | None" = None,  # (3, B, 1)
+    cache_len: "int | None" = None,
 ) -> "tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]":
     """One-token decode. The new k/v row is written into ``cache`` in
     place (the reference returns an updated copy); the same tensors are
@@ -377,7 +378,14 @@ def attention_decode(
     reference's traced position is (a host integer is made into one): the
     cache row, the rotary positions, the kernel's lengths and the local
     window all come from it on the device, so a captured decode step
-    takes each new position from a buffer."""
+    takes each new position from a buffer.
+
+    In a mesh body (``transformer.decode_step`` on a mesh, ``cache_len``
+    the global cache length) the cache is this rank's block: where it
+    holds some of the KV heads (kv_heads over ``model``) the rank attends
+    its heads' q heads and the heads' outputs are all-gathered before
+    ``wo``; where it holds a block of the positions (kv_seq over
+    ``model``) ``_seq_block_decode`` runs."""
     window, scale = _window_scale(cfg, kind)
     b = x.shape[0]
     pos = as_position(pos, x.device).reshape(1)
@@ -385,6 +393,18 @@ def attention_decode(
     q, k_new, v_new = _project_qkv(params, x, cfg, positions,
                                    mrope_positions)
     k_cache, v_cache = cache
+    hkv = k_cache.shape[1]
+    group = cfg.n_heads // cfg.n_kv_heads
+    heads_split = hkv != cfg.n_kv_heads
+    if heads_split:
+        first = shd.axis_index("model") * hkv
+        q = q.narrow(1, first * group, hkv * group)
+        k_new, v_new = k_new.narrow(1, first, hkv), v_new.narrow(1, first, hkv)
+    hq = q.shape[1]
+    if cache_len is not None and k_cache.shape[2] != cache_len:
+        o = _seq_block_decode(q, k_new, v_new, k_cache, v_cache, pos, cfg,
+                              window, scale).to(x.dtype)
+        return _decode_out(params, o, cfg, heads_split), (k_cache, v_cache)
     row = pos.long()
     k_cache.index_copy_(2, row, k_new)
     v_cache.index_copy_(2, row, v_new)
@@ -397,8 +417,6 @@ def attention_decode(
             window=window, logit_softcap=cfg.attn_softcap, scale=scale,
         )[:, :, None, :]
     else:
-        hq, hkv = cfg.n_heads, cfg.n_kv_heads
-        group = hq // hkv
         # q is scaled in float32 and cast back to the cache type; both
         # products take float32 copies of their operands, whose float32
         # sums equal the reference's float32-accumulated products.
@@ -424,6 +442,55 @@ def attention_decode(
         p = torch.softmax(logits, dim=-1)
         o = torch.matmul(p.to(v_att.dtype).float(), v_att.float())
         o = o.reshape(b, hq, 1, cfg.d_head).to(x.dtype)
+    return _decode_out(params, o, cfg, heads_split), (k_cache, v_cache)
 
-    y = shd.constrain(_out_proj(params, o, cfg), ("batch", "seq", "embed"))
-    return y, (k_cache, v_cache)
+
+def _decode_out(params, o, cfg: ModelConfig, heads_split: bool):
+    """``wo`` of a decode step's (B, H, 1, Dh) output, all heads gathered
+    first where this rank attended only its own."""
+    if heads_split:
+        o = shd.all_gather(o, "model", 1)
+    return shd.constrain(_out_proj(params, o, cfg), ("batch", "seq", "embed"))
+
+
+def _seq_block_decode(q, k_new, v_new, k_cache, v_cache, pos,
+                      cfg: ModelConfig, window, scale) -> torch.Tensor:
+    """One-token attention on a rank whose cache holds one block of the
+    positions (kv_seq over ``model``, in rank order): the new k/v row is
+    written where this rank holds ``pos``, each rank takes the softmax
+    statistics of its block (running max, sum, unnormalised output, in
+    float32), and the blocks are combined over ``model`` (flash
+    decoding). Returns (B, H, 1, Dh) float32. The probabilities stay in
+    float32 where the whole-cache path rounds them to the cache type
+    before the second product, so the two agree to that rounding."""
+    if cfg.use_pallas:
+        raise ValueError("the decode_attention kernel takes a whole cache; "
+                         "a cache split over the sequence decodes with "
+                         "use_pallas=False")
+    b, hq = q.shape[:2]
+    hkv, s_loc = k_cache.shape[1], k_cache.shape[2]
+    first = shd.axis_index("model") * s_loc
+    local = pos - first
+    row = torch.clamp(local, 0, s_loc - 1).long()
+    mine = (local >= 0) & (local < s_loc)
+    for c, new in ((k_cache, k_new), (v_cache, v_new)):
+        c.index_copy_(2, row, torch.where(mine, new, c.index_select(2, row)))
+    length = pos + 1
+    cols = first + torch.arange(s_loc, device=q.device)
+    qg = (q.float() * scale).to(q.dtype).reshape(b, hkv, hq // hkv,
+                                                  cfg.d_head)
+    logits = torch.matmul(qg.float(), k_cache.float().transpose(-1, -2))
+    if cfg.attn_softcap is not None:
+        logits = layers.softcap(logits, cfg.attn_softcap)
+    mask = cols < length
+    if window is not None:
+        mask &= cols > length - 1 - window
+    logits = torch.where(mask, logits, NEG)
+    m = logits.amax(-1, keepdim=True)
+    e = torch.where(mask, torch.exp(logits - m), 0.0)
+    stats = [shd.all_gather(t[None], "model", 0) for t in (
+        m, e.sum(-1, keepdim=True), torch.matmul(e, v_cache.float()))]
+    ms, ls, os_ = stats
+    w = torch.exp(ms - ms.amax(0))
+    o = (w * os_).sum(0) / (w * ls).sum(0)
+    return o.reshape(b, hq, 1, cfg.d_head)

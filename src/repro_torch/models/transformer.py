@@ -24,8 +24,9 @@ positions over the batch axes only; the attention, MoE and recurrent
 blocks take their mesh routes, and the token-local layers (norms, MLPs,
 the loss's vocab products) run on the local rows. ``loss_fn`` returns the
 global loss, whose gradient on each rank is that rank's part
-(``sharding.reduce_gradients`` sums them). ``model_axes`` gives the
-reference's logical axes of every parameter.
+(``sharding.reduce_gradients`` sums them). ``decode_step`` on a mesh runs
+each rank's rows against its blocks of the caches (``_decode_on_mesh``).
+``model_axes`` gives the reference's logical axes of every parameter.
 """
 from __future__ import annotations
 
@@ -190,13 +191,14 @@ def block_prefill(p, x, cfg: ModelConfig, kind, positions, cache_len,
 
 
 def block_decode(p, x, cache, pos, cfg: ModelConfig, kind,
-                 mrope_positions=None):
+                 mrope_positions=None, cache_len: "int | None" = None):
     """One-token decode step. Returns (x', cache) with ``cache`` written
-    in place."""
+    in place. ``cache_len`` is the global cache length inside a mesh
+    body (``attention_decode``)."""
     n1 = layers.norm_apply(cfg.norm, p["norm1"], x)
     if kind in _ATTN_KINDS:
         y, cache = attn.attention_decode(p["attn"], n1, cache, pos, cfg, kind,
-                                         mrope_positions)
+                                         mrope_positions, cache_len)
         return _finish(p, x, y, n1, cfg)[0], cache
     return _recurrent(p, x, n1, cfg, kind, cache, chunk=1)
 
@@ -281,9 +283,9 @@ def _layers(p: dict, cfg: ModelConfig):
         yield p["remainder"][j], kind, None, j
 
 
-def _embed_tokens(p, cfg: ModelConfig, tokens=None, embeds=None):
-    """Token ids through the embedding, or a frontend's (B, S, D) embeds
-    in the model dtype; times sqrt(d_model) where the config says so."""
+def _embed(p, cfg: ModelConfig, tokens=None, embeds=None):
+    """Token ids through the embedding, or a frontend's embeds in the
+    model dtype; times sqrt(d_model) where the config says so."""
     if embeds is None:
         h = p["embed"][tokens.long()]
     else:
@@ -291,7 +293,14 @@ def _embed_tokens(p, cfg: ModelConfig, tokens=None, embeds=None):
     if cfg.embed_scale_by_dim:
         h = h * torch.full((), cfg.d_model ** 0.5, dtype=h.dtype,
                            device=h.device)
-    return shd.constrain(h, ("batch", "seq", "embed"))
+    return h
+
+
+def _embed_tokens(p, cfg: ModelConfig, tokens=None, embeds=None):
+    """``_embed`` of (B, S) ids or (B, S, D) embeds under the residual's
+    constraint."""
+    return shd.constrain(_embed(p, cfg, tokens, embeds),
+                         ("batch", "seq", "embed"))
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -480,12 +489,14 @@ def loss_fn(p: dict, cfg: ModelConfig, tokens, labels, embeds=None,
 # Serving: prefill + decode.
 # ---------------------------------------------------------------------------
 
-def _cache_specs(cfg: ModelConfig, b: int, cache_len: int, mesh, rules):
-    """Specs of ``prefill``'s caches on a mesh: attention k/v under the
-    reference's constraint (kv heads, else the sequence, over ``model``),
-    recurrent states over the batch axes."""
-    kv = shd.spec_for(("batch", "kv_heads", "seq", "head_dim"), rules, mesh,
-                      (b, cfg.n_kv_heads, cache_len, cfg.d_head))
+def _cache_specs(cfg: ModelConfig, b: int, cache_len: int, mesh, rules,
+                 seq_axis: str = "seq"):
+    """Specs of the caches on a mesh: attention k/v under the rule of
+    (batch, kv_heads, ``seq_axis``, head_dim) (kv heads, else the
+    sequence, over ``model``: the reference's constraint in ``prefill``,
+    its cache axes in decode), recurrent states over the batch axes."""
+    kv = shd.spec_for(("batch", "kv_heads", seq_axis, "head_dim"), rules,
+                      mesh, (b, cfg.n_kv_heads, cache_len, cfg.d_head))
     dp = kv[0]
 
     def member(kind, lead):
@@ -558,18 +569,47 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
     return period, rem
 
 
-def decode_step(p: dict, cfg: ModelConfig, token, caches,
-                pos: "torch.Tensor | int", embeds=None):
-    """One decode step of (B,) tokens (or (B, D) embeds) at position
-    ``pos``, a () int32 tensor on the inputs' device (a host integer is
-    made into one); M-RoPE ids are ``pos`` on all three streams. Returns
-    (logits (B, V), caches), the caches written in place. Nothing in it
-    reads a value back to the host, so ``serving/loop.py`` captures it
-    into a CUDA graph."""
+def _cache_len(cfg: ModelConfig, caches) -> int:
+    """The length of the attention caches (1 where there are none)."""
+    period, rem = caches
+    for members, kinds in ((period, cfg.pattern), (rem, cfg.remainder)):
+        for cache, kind in zip(members, kinds):
+            if kind in _ATTN_KINDS:
+                return cache[0].shape[-2]
+    return 1
+
+
+def _decode_on_mesh(p: dict, cfg: ModelConfig, token, caches, pos,
+                    embeds=None):
+    """``decode_step`` on each rank's rows and its blocks of the caches:
+    the parameters replicated, the tokens (or embeds) and the recurrent
+    states over the batch axes, the attention caches under the
+    reference's cache axes (batch, kv_heads, kv_seq, head_dim), which
+    ``attention_decode`` reads in a body."""
+    mesh, rules = shd.current_context()
+    b = token.shape[0]
+    cache_len = _cache_len(cfg, caches)
+    specs = _cache_specs(cfg, b, cache_len, mesh, rules, seq_axis="kv_seq")
+    dp = shd.spec_for(("batch",), rules, mesh, (b,))[0]
+    pos = attn.as_position(pos, token.device)
+
+    def body(pp, tok, cc, ps, emb):
+        with shd.region_dims(b, 1):
+            return _decode(pp, cfg, tok, cc, ps, emb, cache_len)
+
+    return shd.shard_map(
+        body, mesh, (P(), P(dp), specs, P(), P(dp, None)),
+        (P(dp, None), specs),
+    )(p, token, caches, pos, embeds)
+
+
+def _decode(p: dict, cfg: ModelConfig, token, caches, pos, embeds=None,
+            cache_len: "int | None" = None):
+    # Unconstrained, as the reference's decode step embeds.
     if embeds is None:
-        h = _embed_tokens(p, cfg, token)[:, None, :]
+        h = _embed(p, cfg, token)[:, None, :]
     else:
-        h = _embed_tokens(p, cfg, embeds=embeds[:, None, :])
+        h = _embed(p, cfg, embeds=embeds[:, None, :])
     pos = attn.as_position(pos, h.device)
     b = h.shape[0]
     mrope = (pos.to(torch.int32).expand(3, b, 1)
@@ -577,6 +617,22 @@ def decode_step(p: dict, cfg: ModelConfig, token, caches,
     period_caches, rem_caches = caches
     for lp, kind, i, j in _layers(p, cfg):
         cache = rem_caches[j] if i is None else _take(period_caches[j], i)
-        h, _ = block_decode(lp, h, cache, pos, cfg, kind, mrope)
+        h, _ = block_decode(lp, h, cache, pos, cfg, kind, mrope, cache_len)
     h = layers.norm_apply(cfg.norm, p["final_norm"], h)
     return logits_fn(p, cfg, h)[:, 0], caches
+
+
+def decode_step(p: dict, cfg: ModelConfig, token, caches,
+                pos: "torch.Tensor | int", embeds=None):
+    """One decode step of (B,) tokens (or (B, D) embeds) at position
+    ``pos``, a () int32 tensor on the inputs' device (a host integer is
+    made into one); M-RoPE ids are ``pos`` on all three streams. Returns
+    (logits (B, V), caches), the caches written in place. Nothing in it
+    reads a value back to the host, so ``serving/loop.py`` captures it
+    into a CUDA graph. Under ``sharding.use_rules`` the inputs are global
+    arrays and each rank decodes its blocks (``_decode_on_mesh``); the
+    caches come back in that route's layout, written in place where they
+    came in it."""
+    if shd.current_context() is not None and not shd.in_region():
+        return _decode_on_mesh(p, cfg, token, caches, pos, embeds)
+    return _decode(p, cfg, token, caches, pos, embeds)

@@ -54,14 +54,16 @@ class TrainConfig:
     opt: opt_lib.AdamWConfig = opt_lib.AdamWConfig()
 
 
-def value_and_grad(params, cfg: ModelConfig, tokens, labels):
+def value_and_grad(params, cfg: ModelConfig, tokens, labels, embeds=None,
+                   mrope_positions=None):
     """(loss, gradient tree) of ``loss_fn`` at ``params``; a leaf the loss
     does not reach has the gradient None. Each gradient has its leaf's
     dtype."""
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
     with torch.enable_grad():
         loss = transformer.loss_fn(unflatten(params, flat), cfg, tokens,
-                                   labels)
+                                   labels, embeds=embeds,
+                                   mrope_positions=mrope_positions)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = unflatten(params, grads)
     if shd.is_global(loss):
@@ -70,32 +72,47 @@ def value_and_grad(params, cfg: ModelConfig, tokens, labels):
     return loss.detach(), grads
 
 
+def _microbatch(batch: dict, i: int, n: int) -> dict:
+    """Microbatch ``i`` of ``n`` over the leading batch dim (the
+    reference's reshape to (n, B / n, ...)); ``mrope_positions`` (3, B, S)
+    splits on its batch axis."""
+    out = {}
+    for k, v in batch.items():
+        axis = 1 if k == "mrope_positions" else 0
+        rows = v.shape[axis] // n
+        out[k] = v.narrow(axis, i * rows, rows)
+    return out
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     """The (params, opt_state, residuals, batch) -> (params, opt_state,
-    residuals, metrics) step; params, m and v are written in place."""
+    residuals, metrics) step; params, m and v are written in place. The
+    batch holds ``labels`` and ``tokens`` or a frontend's ``embeds``, and
+    ``mrope_positions`` where the config takes M-RoPE."""
 
-    def grads_of(params, tokens, labels):
-        loss, g = value_and_grad(params, cfg, tokens, labels)
+    def grads_of(params, mb):
+        loss, g = value_and_grad(params, cfg, mb.get("tokens"), mb["labels"],
+                                 embeds=mb.get("embeds"),
+                                 mrope_positions=mb.get("mrope_positions"))
         return loss, tree_map(
             lambda p, x: torch.zeros_like(p) if x is None else x, params, g)
 
     def step(params, opt_state, residuals, batch):
-        tokens, labels = batch["tokens"], batch["labels"]
         if tcfg.grad_accum > 1:
-            b = tokens.shape[0] // tcfg.grad_accum
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            lsum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            gsum = tree_map(
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=batch["labels"].device)
             for i in range(tcfg.grad_accum):
-                rows = slice(i * b, (i + 1) * b)
-                loss, g = grads_of(params, tokens[rows], labels[rows])
+                loss, g = grads_of(params,
+                                   _microbatch(batch, i, tcfg.grad_accum))
                 tree_map(lambda acc, x: acc.add_(x), gsum, g)
                 lsum = lsum + loss
                 del g
             grads = tree_map(lambda x: const_div(x, tcfg.grad_accum), gsum)
             loss = const_div(lsum, tcfg.grad_accum)
         else:
-            loss, grads = grads_of(params, tokens, labels)
+            loss, grads = grads_of(params, batch)
 
         if tcfg.compress_grads:
             grads, residuals = compression.compress_tree(grads, residuals)

@@ -33,7 +33,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.core.xla_math import _fma32, const_div, pow_f32
-from repro_torch.train.tree import jax_leaves, leaves, tree_map
+from repro_torch.train.tree import leaves, jax_leaves, tree_map
 
 UPDATE_CHUNK = 1 << 27      # elements of a leaf updated at once
 

@@ -257,3 +257,67 @@ def train_body(rank, inp):
                                    shardings={"params": p_sh, "opt": o_sh})
         out["ref_ckpt_params"] = whole(state["params"])
     return out if rank == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# Decode on a mesh against one device.
+# ---------------------------------------------------------------------------
+
+def decode_body(rank, inp):
+    """Each case: ``prefill`` on one device, then ``decode_step`` over the
+    same tokens on one device and on a (2, 2) mesh, the parameters and
+    caches placed by the dry run's shardings (``model_axes``,
+    ``specs.cache_axes``). Returns the logits of every step and the
+    caches after the last, gathered whole, and each cache leaf's
+    placements before and after and whether it is an attention cache."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.config import ATTN, ATTN_LOCAL
+    from repro_torch.train.tree import leaves, tree_map
+
+    def placements(tree):
+        return [tuple(str(p) for p in t.placements) for t in leaves(tree)]
+
+    mesh = make_mesh(2, 2, device="cpu")
+    rules = shd.DEFAULT_RULES
+    out = {}
+    for name, case in inp.items():
+        cfg = configs.get_config(case["arch"], smoke=True).replace(
+            **case["cut"])
+        params = transformer.init_model(torch.Generator().manual_seed(0), cfg)
+        tokens = torch.from_numpy(case["tokens"])
+        b, first = tokens.shape[0], case["prompt"]
+        _, caches = transformer.prefill(params, cfg, tokens[:, :first],
+                                        cache_len=case["cache_len"])
+        one = tree_map(torch.clone, caches)
+        want = []
+        for pos in range(first, tokens.shape[1]):
+            logits, one = transformer.decode_step(params, cfg, tokens[:, pos],
+                                                  one, pos)
+            want.append(_np(logits))
+        dparams = shd.distribute_tree(params, mesh, shd.sharding_tree(
+            transformer.model_axes(cfg), rules, mesh, params))
+        dcaches = shd.distribute_tree(caches, mesh, shd.sharding_tree(
+            specs.cache_axes(cfg), rules, mesh, caches))
+        placed = placements(dcaches)
+        attention = []
+        for members, kinds in zip(caches, (cfg.pattern, cfg.remainder)):
+            for c, kind in zip(members, kinds):
+                attention += [kind in (ATTN, ATTN_LOCAL)] * len(leaves(c))
+        dp = shd.spec_for(("batch",), rules, mesh, (b,))
+        got = []
+        with shd.use_rules(mesh, rules):
+            for pos in range(first, tokens.shape[1]):
+                tok = shd.distribute(tokens[:, pos], mesh, dp)
+                logits, dcaches = transformer.decode_step(
+                    dparams, cfg, tok, dcaches, pos)
+                got.append(_np(shd.full_tensor(logits)))
+        out[name] = dict(
+            want=want, got=got, placed=placed, attention=attention,
+            returned=placements(dcaches),
+            caches_want=[_np(t) for t in leaves(one)],
+            caches_got=[_np(shd.full_tensor(t)) for t in leaves(dcaches)])
+    return out if rank == 0 else None
